@@ -1,23 +1,31 @@
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA card.
 
     python3 chip_smoke.py        (from the repository root, one CUDA card)
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. the build of the CUDA kernels from shafa_tpu_torch/kernels/csrc/;
-  3. every kernel of the main path (K1-K4) against its plain PyTorch
-     version on the card, on the main path's shapes, exact equality, both
-     timed with CUDA events;
-  4. the main path: a 200,000,000-byte seeded corpus through
-     ``shafa_tpu_torch.cli.main([path, "-b", "m"])`` and back from its
-     .rle.shaf; the round trip must be bit-exact, every kernel launched,
-     no block decoded on the host, and jax never imported;
-  5. the sidecars of a 16 MB mixed and a 16 MB random file at -b K against
-     the same CLI with ``--backend numpy`` (shafa_tpu.pipeline's
-     compress_pipeline with its NumPy backend); jax never imported in the
-     whole run.
+  3. every kernel of the main paths against its plain PyTorch version on
+     the card, on the paths' shapes, exact equality, both timed with CUDA
+     events: K1-K4 on the 200 MB mixed corpus's batches, K5 and K6 on the
+     (4, 8 MiB) decode batch of the 200 MB text corpus; beside each, the
+     least time the card could take (bytes over 3.35 TB/s) and, for K4,
+     torch.repeat_interleave, the one PyTorch call that computes the same;
+  4. K5 and the whole 17-32-bit decode chain on a hand-built complete table
+     with codes of 26-32 bits against the NumPy oracle (the case of the JAX
+     kernel's window fault);
+  5. two main paths through ``shafa_tpu_torch.cli.main([path, "-b", "m"])``
+     and back from their .rle.shaf, each bit-exact, with the launch counts
+     set to 0 before and read after: the 200,000,000-byte mixed corpus
+     (codes of at most 16 bits: K1-K4) and the 200,000,000-byte text corpus
+     with rare bytes (every block with codes of 17-32 bits: K1, K5, K6,
+     K4); no block decoded on the host on either;
+  6. the sidecars of a 16 MB mixed and a 16 MB random file at -b K against
+     the same CLI with ``--backend numpy``; no module of shafa_tpu and no
+     jax imported in the whole run.
 
-The line before the last holds the kernels' JSON record; the last line is
+The line before the last holds the kernels' JSON record (``launches`` sums
+the two main paths' counts, ``launches_by_path`` keeps each); the last line is
 the device JSON line. Without a CUDA card, or without the repository beside
 it, the script exits 1 and prints no result.
 """
@@ -39,6 +47,33 @@ import numpy as np
 CORPUS_BYTES = 200_000_000
 SIDECAR_BYTES = 16_000_000
 SEED = 0
+BLOCK = 8 << 20
+
+#: HBM bytes per second of one H100 SXM (NVIDIA's data sheet)
+HBM_BYTES_PER_S = 3.35e12
+
+SOURCES = {
+    "emit_bits": ("shafa_tpu_torch/kernels/csrc/emit.cu",
+                  "shafa_tpu/kernels/emit_pallas.py:128"),
+    "emit_coded": ("shafa_tpu_torch/kernels/csrc/emit.cu",
+                   "shafa_tpu/kernels/emit_pallas.py:128"),
+    "rank": ("shafa_tpu_torch/kernels/csrc/rank.cu",
+             "shafa_tpu/kernels/decode.py:365"),
+    "fsm_decode": ("shafa_tpu_torch/kernels/csrc/fsm_decode.cu",
+                   "shafa_tpu/kernels/decode.py:1142"),
+    "expand": ("shafa_tpu_torch/kernels/csrc/expand.cu",
+               "shafa_tpu/kernels/expand_pallas.py:64"),
+    "rank32": ("shafa_tpu_torch/kernels/csrc/rank32.cu",
+               "shafa_tpu/kernels/decode.py:485"),
+    "fsm32": ("shafa_tpu_torch/kernels/csrc/fsm32.cu",
+              "shafa_tpu/kernels/decode.py:631"),
+}
+
+#: Kernels each main path must launch.
+PATH_KERNELS = {
+    "mixed": ("emit_bits", "emit_coded", "rank", "fsm_decode", "expand"),
+    "text": ("emit_bits", "emit_coded", "rank32", "fsm32", "expand"),
+}
 
 
 def fail(msg: str) -> None:
@@ -61,10 +96,18 @@ def timed_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(name, kernel, plain, unpack=lambda r: r) -> dict:
-    """Kernel vs plain version on the same inputs: exact, then timed."""
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def compare(name, kernel, plain, moved: int, unpack) -> dict:
+    """Kernel vs plain version on the same inputs: exact, then timed. The
+    bound is the moved bytes at the card's memory rate: the lanes this
+    data fills (not a batch's padding) read once, the outputs they give
+    written once, and the tables."""
     import torch
-    got = [t.to(torch.int64) for t in unpack(kernel())]
+    out = kernel()
+    got = [t.to(torch.int64) for t in unpack(out)]
     want = [t.to(torch.int64) for t in unpack(plain())]
     torch.cuda.synchronize()
     err = max(int((g - w).abs().max()) if g.numel() else 0
@@ -72,42 +115,30 @@ def compare(name, kernel, plain, unpack=lambda r: r) -> dict:
     if any(g.shape != w.shape for g, w in zip(got, want)) or err:
         fail(f"{name}: kernel differs from its plain version "
              f"(max abs err {err})")
-    del got, want
+    del got, want, out
     ms = timed_ms(kernel, 5)
     plain_ms = timed_ms(plain, 2)
     torch.cuda.empty_cache()
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                library_ms=None)
 
 
-def kernel_phase(data: bytes, dev, block: int = 8 << 20) -> list[dict]:
-    """K1-K4 against their plain versions on the main path's shapes: one
-    (8, 8 MiB) batch of the corpus for K1, and the (4, 8 MiB) decode batch
-    that the main path builds from its payloads for K2-K4."""
+def encode_on_card(data: bytes, dev, rows: int):
+    """The first rows blocks of data through the main path's encode on the
+    card: RLE (K1), histograms, code tables, the pack (K1's LUT variant).
+    Returns (x, lengths, K1 inputs, RLE streams, their lengths, tables,
+    payloads, the pack's arguments)."""
     import torch
-    from shafa_tpu import codes as codes_mod
-    from shafa_tpu_torch.device import (_bucket, _stack_blocks,
-                                        tables_to_device)
-    from shafa_tpu_torch.kernels import (decode, emit, expand, histogram,
-                                         pack, rle)
+    from shafa_tpu_torch import codes as codes_mod
+    from shafa_tpu_torch.device import _stack_blocks, tables_to_device
+    from shafa_tpu_torch.kernels import emit, histogram, pack, rle
 
-    rows = 8
-    blocks = [np.frombuffer(data, np.uint8, block, i * block)
+    blocks = [np.frombuffer(data, np.uint8, BLOCK, i * BLOCK)
               for i in range(rows)]
     stacked, lens = _stack_blocks(blocks)
     x = torch.from_numpy(stacked).to(dev)
     ld = torch.from_numpy(lens).to(dev)
-    results = []
-
-    val, bitlen, enc_len = rle.rle_payloads(x, ld)
-    stride = rle.rle_out_bound(block) // 4
-    r = compare("K1 emit_bits",
-                lambda: emit.emit_bits_rows(val, bitlen, ld, stride),
-                lambda: emit.emit_bits_rows_plain(val, bitlen, ld, stride),
-                lambda rows_: [rows_[i, :int(n)] for i, n in
-                               enumerate(enc_len.tolist())])
-    results.append(dict(name="emit_bits", shape=list(val.shape), **r))
-    del val, bitlen
-
     enc, enc_len = rle.rle_encode_batch(x, ld)
     hist = histogram.histogram_batch(enc, enc_len).cpu().numpy()
     tables = codes_mod.build_code_tables(hist)
@@ -116,23 +147,51 @@ def kernel_phase(data: bytes, dev, block: int = 8 << 20) -> list[dict]:
     woff_np, need = emit.aligned_offsets(byte_lens)
     woff = torch.from_numpy(woff_np).to(dev)
     src_len = enc_len.to(torch.int32)
-    r = compare("K1 emit_coded",
-                lambda: emit.emit_coded(enc, src_len, dt.lut_len, dt.lut_val,
-                                        woff, need),
-                lambda: emit.emit_coded_plain(enc, src_len, dt.lut_len,
-                                              dt.lut_val, woff, need),
-                lambda flat: [flat])
-    results.append(dict(name="emit_coded", shape=list(enc.shape), **r))
-    flat = emit.emit_coded(enc, src_len, dt.lut_len, dt.lut_val, woff, need)
-    buf = flat.cpu().numpy().view(np.uint8)
+    pack_args = (enc, src_len, dt.lut_len, dt.lut_val, woff, need)
+    buf = emit.emit_coded(*pack_args).cpu().numpy().view(np.uint8)
     payloads = [buf[4 * int(w):4 * int(w) + int(n)]
                 for w, n in zip(woff_np, byte_lens)]
+    return x, ld, enc, enc_len, tables, payloads, pack_args
+
+
+def kernel_phase(data: bytes, dev) -> list[dict]:
+    """K1-K4 against their plain versions on the main path's shapes: one
+    (8, 8 MiB) batch of the corpus for K1, and the (4, 8 MiB) decode batch
+    that the main path builds from its payloads for K2-K4."""
+    import torch
+    from shafa_tpu_torch import codes as codes_mod
+    from shafa_tpu_torch.device import (_bucket, _stack_blocks,
+                                        tables_to_device)
+    from shafa_tpu_torch.kernels import decode, emit, expand, rle
+
+    x, ld, enc, enc_len, tables, payloads, pack_args = encode_on_card(
+        data, dev, 8)
+    results = []
+    val, bitlen, _ = rle.rle_payloads(x, ld)
+    stride = rle.rle_out_bound(BLOCK) // 4
+    r = compare("K1 emit_bits",
+                lambda: emit.emit_bits_rows(val, bitlen, ld, stride),
+                lambda: emit.emit_bits_rows_plain(val, bitlen, ld, stride),
+                8 * int(ld.sum()) + nbytes(ld) + int(enc_len.sum()),
+                lambda rows_: [rows_[i, :int(n)] for i, n in
+                               enumerate(enc_len.tolist())])
+    results.append(dict(name="emit_bits", shape=list(val.shape), **r))
+    del val, bitlen
+
+    r = compare("K1 emit_coded", lambda: emit.emit_coded(*pack_args),
+                lambda: emit.emit_coded_plain(*pack_args),
+                int(enc_len.sum()) + nbytes(*pack_args[1:5])
+                + 4 * pack_args[5], lambda flat: [flat])
+    results.append(dict(name="emit_coded", shape=list(enc.shape), **r))
     counts_np = enc_len.cpu().numpy().astype(np.int32)
-    del x, enc, flat
+    del x, enc, pack_args
 
     # the main path's decode batch: rows of the first 4 blocks
     drows = 4
     pst, plens = _stack_blocks(payloads[:drows], minimum=1024)
+    # per payload byte: K2/K5 read a 4-byte window and write 8 int32 plane
+    # entries; K3/K6 read those 32 bytes, K6 writes 4 int32 packs
+    payload = int(plens.sum())
     sub = codes_mod.CodeTables(tables.lens[:drows], tables.vals[:drows])
     if int(sub.lens.max()) > 16:
         fail("the corpus's first blocks have codes over 16 bits")
@@ -143,6 +202,7 @@ def kernel_phase(data: bytes, dev, block: int = 8 << 20) -> list[dict]:
     r = compare("K2 rank",
                 lambda: decode.rank_planes(w32, dd.pc16, dd.ls),
                 lambda: decode.rank_planes_plain(w32, dd.pc16, dd.ls),
+                36 * payload + nbytes(dd.pc16, dd.ls),
                 lambda t: [t])
     results.append(dict(name="rank", shape=list(w32.shape), **r))
     ls8 = decode.rank_planes(w32, dd.pc16, dd.ls)
@@ -153,6 +213,7 @@ def kernel_phase(data: bytes, dev, block: int = 8 << 20) -> list[dict]:
                 lambda: decode.decode_rows(ls8, pl, cnt, s_states, out_p),
                 lambda: decode.decode_rows_plain(ls8, pl, cnt, s_states,
                                                  out_p),
+                32 * payload + nbytes(pl, cnt) + int(cnt.sum()) + drows,
                 lambda t: list(t))
     results.append(dict(name="fsm_decode", shape=[drows, pst.shape[1]], **r))
     dec, under = decode.decode_rows(ls8, pl, cnt, s_states, out_p)
@@ -161,32 +222,131 @@ def kernel_phase(data: bytes, dev, block: int = 8 << 20) -> list[dict]:
     del ls8
     prep = expand.rle_expand_prep(dec, cnt)
     total = int(prep["out_len"].sum())
-    if total != drows * block:
-        fail(f"K4 prep: {total} expanded bytes, expected {drows * block}")
+    if total != drows * BLOCK:
+        fail(f"K4 prep: {total} expanded bytes, expected {drows * BLOCK}")
     args = (prep["cum"], prep["sym"], prep["out_base"], total)
     r = compare("K4 expand",
                 lambda: expand.expand_tokens(*args),
                 lambda: expand.expand_tokens_plain(*args),
+                9 * int(cnt.sum()) + nbytes(args[2]) + total,
                 lambda t: [t])
-    out = expand.expand_tokens(*args).cpu().numpy()
-    if out.tobytes() != data[:drows * block]:
+    out = expand.expand_tokens(*args)
+    if out.cpu().numpy().tobytes() != data[:drows * BLOCK]:
         fail("K1 -> K4 chain does not reproduce the corpus")
+    # the library call for the same expansion: per-token counts in
+    # (computed beforehand), the same back-to-back bytes out
+    cnt_flat = torch.diff(prep["cum"], dim=1,
+                          prepend=torch.zeros_like(prep["cum"][:, :1]))
+    cnt_flat = cnt_flat.reshape(-1)
+    sym_flat = prep["sym"].reshape(-1)
+    lib = torch.repeat_interleave(sym_flat, cnt_flat, output_size=total)
+    if not torch.equal(lib, out):
+        fail("torch.repeat_interleave disagrees with K4")
+    del lib, out
+    r["library_ms"] = timed_ms(
+        lambda: torch.repeat_interleave(sym_flat, cnt_flat,
+                                        output_size=total), 5)
     results.append(dict(name="expand", shape=list(prep["cum"].shape), **r))
     return results
 
 
-SOURCES = {
-    "emit_bits": ("shafa_tpu_torch/kernels/csrc/emit.cu",
-                  "shafa_tpu/kernels/emit_pallas.py:128"),
-    "emit_coded": ("shafa_tpu_torch/kernels/csrc/emit.cu",
-                   "shafa_tpu/kernels/emit_pallas.py:128"),
-    "rank": ("shafa_tpu_torch/kernels/csrc/rank.cu",
-             "shafa_tpu/kernels/decode.py:365"),
-    "fsm_decode": ("shafa_tpu_torch/kernels/csrc/fsm_decode.cu",
-                   "shafa_tpu/kernels/decode.py:1142"),
-    "expand": ("shafa_tpu_torch/kernels/csrc/expand.cu",
-               "shafa_tpu/kernels/expand_pallas.py:64"),
-}
+def kernel32_phase(text: bytes, dev) -> list[dict]:
+    """K5 and K6 against their plain versions on the 17-32-bit path's
+    decode batch: the payloads of the text corpus's first 4 blocks, as the
+    main path packs them, in one (4, 8 MiB) batch."""
+    import torch
+    from shafa_tpu_torch.device import _bucket, _stack_blocks
+    from shafa_tpu_torch.kernels import decode
+
+    drows = 4
+    _, _, enc, enc_len, tables, payloads, _ = encode_on_card(text, dev,
+                                                             drows)
+    maxlen = int(tables.lens.max())
+    if not 16 < maxlen <= 32:
+        fail(f"the text corpus's first blocks have codes of {maxlen} bits")
+    pst, plens = _stack_blocks(payloads, minimum=1024)
+    payload = int(plens.sum())
+    counts_np = enc_len.cpu().numpy().astype(np.int32)
+    pc32, ls, ncodes = (torch.from_numpy(a).to(dev) for a in
+                        decode.rank_tables32(decode.decode_tables_batch(
+                            tables.lens, tables.vals)))
+    w32 = decode.windows32_bytes(torch.from_numpy(pst).to(dev))
+    results = []
+    r = compare("K5 rank32",
+                lambda: decode.rank_planes32(w32, pc32, ls, ncodes),
+                lambda: decode.rank_planes32_plain(w32, pc32, ls, ncodes),
+                36 * payload + nbytes(pc32, ls, ncodes),
+                lambda t: [t])
+    results.append(dict(name="rank32", shape=list(w32.shape), **r))
+    planes = decode.rank_planes32(w32, pc32, ls, ncodes)
+    pl = torch.from_numpy(plens).to(dev)
+    cnt = torch.from_numpy(counts_np).to(dev)
+    r = compare("K6 fsm32",
+                lambda: decode.fsm32_packs(planes, pl, cnt),
+                lambda: decode.fsm32_packs_plain(planes, pl, cnt),
+                48 * payload + nbytes(pl, cnt) + drows, lambda t: list(t))
+    results.append(dict(name="fsm32", shape=[drows, pst.shape[1]], **r))
+    dec, under = decode.decode_batch32(
+        torch.from_numpy(pst).to(dev), pl, pc32, ls, ncodes, cnt,
+        _bucket(int(counts_np.max())))
+    if bool(under.any()):
+        fail("K6 flagged underrun on the text corpus")
+    for i, n in enumerate(counts_np):
+        if not torch.equal(dec[i, :n], enc[i, :n]):
+            fail(f"K5 -> K6 -> K1 does not give row {i}'s RLE stream")
+    print(f"text corpus decode batch: codes up to {maxlen} bits, "
+          f"{int((tables.lens > 16).sum(axis=1).max())} symbols of a row "
+          "over 16 bits", flush=True)
+    return results
+
+
+def fault_phase(dev) -> None:
+    """K5 and the whole 17-32-bit chain against oracle.unpack on a complete
+    canonical table with codes of 26-32 bits, most of the symbols drawn
+    from the long codes: the window at bit 8j+s needs byte j+4."""
+    import torch
+    from shafa_tpu_torch import codes as codes_mod
+    from shafa_tpu_torch import oracle
+    from shafa_tpu_torch.device import _bucket, _stack_blocks
+    from shafa_tpu_torch.kernels import decode
+
+    lens_list = list(range(1, 32)) + [32, 32]
+    lens = np.zeros((1, 256), np.uint8)
+    vals = np.zeros((1, 256), np.uint64)
+    code = prev = 0
+    for s, ln in enumerate(lens_list):
+        code <<= ln - prev
+        lens[0, s] = ln
+        vals[0, s] = np.uint64(code) << np.uint64(64 - ln)
+        code += 1
+        prev = ln
+    tables = codes_mod.CodeTables(lens, vals)
+    rng = np.random.default_rng(SEED)
+    blk = rng.integers(25, 33, 300_000).astype(np.uint8)
+    payload = oracle.pack(blk, tables.lens[0], tables.vals[0])
+    st, plens = _stack_blocks([np.frombuffer(payload, np.uint8)],
+                              minimum=1024)
+    pc32, ls, ncodes = (torch.from_numpy(a).to(dev) for a in
+                        decode.rank_tables32(decode.decode_tables_batch(
+                            tables.lens, tables.vals)))
+    x = torch.from_numpy(st).to(dev)
+    w32 = decode.windows32_bytes(x)
+    if not torch.equal(decode.rank_planes32(w32, pc32, ls, ncodes),
+                       decode.rank_planes32_plain(w32, pc32, ls, ncodes)):
+        fail("K5 differs from its plain version on 26-32-bit codes")
+    dec, under = decode.decode_batch32(
+        x, torch.from_numpy(plens).to(dev), pc32, ls, ncodes,
+        torch.tensor([blk.size], dtype=torch.int32, device=dev),
+        _bucket(blk.size))
+    want = oracle.unpack(payload, tables.row_strings(0), blk.size)
+    if bool(under.any()) or not np.array_equal(
+            dec[0, :blk.size].cpu().numpy(), want) \
+            or not np.array_equal(want, blk):
+        fail("the 17-32-bit chain differs from oracle.unpack on 26-32-bit "
+             "codes")
+    print(f"26-32-bit codes: K5 exact vs plain, K5 -> K6 -> K1 equals "
+          f"oracle.unpack on {blk.size} symbols ({len(payload)} payload "
+          "bytes)", flush=True)
 
 
 def run_cli(argv: list[str], log) -> None:
@@ -197,13 +357,15 @@ def run_cli(argv: list[str], log) -> None:
         fail(f"shafa_tpu_torch {' '.join(argv)} exited {rc}")
 
 
-def main_path(work: str, data: bytes) -> dict:
-    """The default round trip at -b m through the CLI entry point."""
+def main_path(work: str, name: str, data: bytes) -> dict:
+    """A round trip at -b m through the CLI entry point, with the launch
+    counts read around it."""
     import torch
+    from shafa_tpu_torch import formats
     from shafa_tpu_torch.device import TorchBackend
     from shafa_tpu_torch.kernels import _build
 
-    path = os.path.join(work, "corpus.bin")
+    path = os.path.join(work, f"{name}.bin")
     with open(path, "wb") as fp:
         fp.write(data)
     log = io.StringIO()
@@ -214,7 +376,7 @@ def main_path(work: str, data: bytes) -> dict:
     run_cli([path, "-b", "m"], log)
     t1 = time.perf_counter()
     if not os.path.isfile(path + ".rle.shaf"):
-        fail("compress did not take the R mode (.rle.shaf missing)")
+        fail(f"{name}: compress did not take the R mode (.rle.shaf missing)")
     os.rename(path, path + ".orig")
     t2 = time.perf_counter()
     run_cli([path + ".rle.shaf"], log)
@@ -222,16 +384,22 @@ def main_path(work: str, data: bytes) -> dict:
     launches = dict(_build.launches)
     with open(path, "rb") as fp:
         if fp.read() != data:
-            fail("the 200 MB round trip is not bit-exact")
-    if min(launches.values()) < 1:
-        fail(f"a kernel was not launched on the main path: {launches}")
+            fail(f"{name}: the 200 MB round trip is not bit-exact")
+    missing = [k for k in PATH_KERNELS[name] if launches[k] < 1]
+    if missing:
+        fail(f"{name}: {missing} not launched on the main path: {launches}")
     if TorchBackend.host_decoded_blocks:
-        fail(f"{TorchBackend.host_decoded_blocks} blocks decoded on the host")
-    if "jax" in sys.modules:
-        fail("jax was imported")
-    return dict(launches=launches,
-                compress_s=t1 - t0, decompress_s=t3 - t2,
-                shaf_bytes=os.path.getsize(path + ".rle.shaf"))
+        fail(f"{name}: {TorchBackend.host_decoded_blocks} blocks decoded on "
+             "the host")
+    with open(path + ".rle.cod", "rb") as fp:
+        _, _, tables = formats.parse_cod_tables(fp.read())
+    maxlen = tables.lens.max(axis=1)
+    for f in (path, path + ".orig", path + ".rle"):
+        os.remove(f)
+    return dict(launches=launches, compress_s=t1 - t0, decompress_s=t3 - t2,
+                shaf_bytes=os.path.getsize(path + ".rle.shaf"),
+                blocks=len(maxlen), maxlen=(int(maxlen.min()),
+                                            int(maxlen.max())))
 
 
 def sidecar_phase(work: str) -> None:
@@ -264,6 +432,11 @@ def sidecar_phase(work: str) -> None:
               "the NumPy backend; round trip bit-exact", flush=True)
 
 
+def foreign_modules() -> list[str]:
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("shafa_tpu", "jax", "jaxlib"))
+
+
 def main() -> int:
     try:
         import torch
@@ -290,43 +463,64 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {_build.build_seconds:.2f} s)", flush=True)
+          f"(nvcc {_build.build_seconds:.2f} s, one process per source)",
+          flush=True)
 
-    from shafa_tpu_torch.profile_main_path import synthetic
+    from shafa_tpu_torch.profile_main_path import (synthetic,
+                                                   text_with_rare_bytes)
     dev = torch.device("cuda", 0)
-    data = synthetic(CORPUS_BYTES, SEED)
-    kernels = kernel_phase(data, dev)
+    corpora = {"mixed": synthetic(CORPUS_BYTES, SEED),
+               "text": text_with_rare_bytes(CORPUS_BYTES)}
+    kernels = kernel_phase(corpora["mixed"], dev)
+    kernels += kernel32_phase(corpora["text"], dev)
     for k in kernels:
+        lib = "" if k["library_ms"] is None else \
+            f", library {k['library_ms']:.3f} ms"
         print(f"{k['name']}: shape {k['shape']} kernel {k['ms']:.3f} ms, "
-              f"plain {k['plain_ms']:.3f} ms, exact", flush=True)
+              f"plain {k['plain_ms']:.3f} ms, bound {k['bound_ms']:.3f} ms"
+              f"{lib}, exact", flush=True)
+    fault_phase(dev)
     torch.cuda.empty_cache()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
+    runs = {}
     try:
-        res = main_path(work, data)
-        del data
-        mb = CORPUS_BYTES / 1e6
-        print(f"main path 200 MB -b m on {card}: compress "
-              f"{mb / res['compress_s']:.1f} MB/s ({res['compress_s']:.3f} s),"
-              f" decompress {mb / res['decompress_s']:.1f} MB/s "
-              f"({res['decompress_s']:.3f} s), ratio "
-              f"{res['shaf_bytes'] / CORPUS_BYTES:.4f}, round trip "
-              f"bit-exact, launches {res['launches']}, host-decoded "
-              "blocks 0, jax not imported", flush=True)
+        for name, data in corpora.items():
+            res = runs[name] = main_path(work, name, data)
+            mb = CORPUS_BYTES / 1e6
+            print(f"main path {name} 200 MB -b m on {card}: compress "
+                  f"{mb / res['compress_s']:.1f} MB/s "
+                  f"({res['compress_s']:.3f} s), decompress "
+                  f"{mb / res['decompress_s']:.1f} MB/s "
+                  f"({res['decompress_s']:.3f} s), ratio "
+                  f"{res['shaf_bytes'] / CORPUS_BYTES:.4f}, "
+                  f"{res['blocks']} blocks with longest codes of "
+                  f"{res['maxlen'][0]}-{res['maxlen'][1]} bits, round trip "
+                  f"bit-exact, launches {res['launches']}, host-decoded "
+                  "blocks 0", flush=True)
+        if not 16 < runs["text"]["maxlen"][0] <= runs["text"]["maxlen"][1] \
+                <= 32:
+            fail(f"text: longest codes {runs['text']['maxlen']}, not all "
+                 "17-32 bits")
+        del corpora
         sidecar_phase(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    if foreign_modules():
+        fail(f"imported: {foreign_modules()}")
+    print("no module of shafa_tpu and no jax imported", flush=True)
 
     record = []
     for k in kernels:
         source, replaces = SOURCES[k["name"]]
-        record.append(dict(name=k["name"], route="cuda", source=source,
-                           replaces=replaces,
-                           launches=res["launches"][k["name"]],
-                           max_abs_err=k["max_abs_err"], ms=k["ms"],
-                           plain_ms=k["plain_ms"]))
+        record.append(dict(
+            name=k["name"], route="cuda", source=source, replaces=replaces,
+            launches=sum(r["launches"][k["name"]] for r in runs.values()),
+            launches_by_path={path: r["launches"][k["name"]]
+                              for path, r in runs.items()},
+            **{key: k[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")}))
     print(json.dumps({"kernels": record}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,54 +1,215 @@
 """CLI of the port: ``python -m shafa_tpu_torch``, flag-compatible with
 ``python -m shafa_tpu`` (shafa_tpu/cli.py) and the reference.
 
+Flags: <file>  -m f|t|c|d (repeatable)  -b K|m|M  -c r|f  -d s|r
+       --no-multithread (one block per device batch, the fused tier off)
+Extra (not in the reference): --backend numpy|torch (default torch),
+--check (cross-verify every device stage against the numpy oracle),
+--json PATH|- (structured per-module metrics).
+
 Differences from the JAX package's CLI:
-  * ``--backend numpy|torch`` (default torch); ``--backend jax`` is a
-    syntax error;
+  * ``--backend jax`` is a syntax error;
   * the device is CUDA unless SHAFA_TORCH_DEVICE names another (``cpu`` in
     the tests); without CUDA and without that variable the CLI exits 1 with
     "CUDA device not available";
-  * inputs above the streaming threshold (256 MiB, shafa_tpu/pipeline.py:
-    320), ``--profile`` and multi-host runs are refused until ported.
+  * inputs above the streaming threshold (256 MiB, pipeline.STREAM_THRESHOLD),
+    ``--profile`` and multi-host runs are refused until ported.
 
-Module-chain legality, messages and exit codes are those of
-shafa_tpu/cli.py:226-397, which follows the reference's execute_modules.
+Defaulting (shafa.c:293-305): with no -m, a .shaf input runs D only, anything
+else runs F+T+C; with no -b the block size is 64 KiB. Module-chain legality,
+messages and exit codes are those of shafa_tpu/cli.py:226-397, which follows
+the reference's execute_modules. Exit status: 0 on success, 1 on any error
+(shafa.c:310-316).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import sys
 
-from shafa_tpu import formats, geometry, pipeline
-from shafa_tpu.cli import (_emit_json, _print_summary_c, _print_summary_d,
-                           _print_summary_f, _print_summary_t, parse)
-from shafa_tpu.errors import Code, ShafaError, error_msg
-from shafa_tpu.pipeline import StageReport
+from . import formats, geometry, pipeline
+from .errors import Code, ShafaError, error_msg
+from .pipeline import StageReport
+
+BANNER = [
+    "shafa_tpu_torch: Shafa-format lossless codec",
+    "PyTorch/CUDA implementation (reference: Fytex/Shafa-CD)",
+]
 
 BACKENDS = ("numpy", "torch")
 
 
-def parse_args(argv: list[str]):
-    """shafa_tpu.cli.parse with the port's --backend values; None on a
-    syntax error."""
-    rest: list[str] = []
-    backend = "torch"
+@dataclasses.dataclass
+class Options:
+    """Parsed flags. Copy of shafa_tpu/cli.py:34-49."""
+    block_size: int = 0
+    module_f: bool = False
+    module_t: bool = False
+    module_c: bool = False
+    module_d: bool = False
+    f_force_rle: bool = False
+    f_force_freq: bool = False
+    d_shaf: bool = False
+    d_rle: bool = False
+    no_multithread: bool = False
+    backend: str = "torch"
+    check: bool = False
+    json_path: str = ""
+    profile_dir: str = ""
+
+
+def parse(argv: list[str]) -> tuple[Options, str | None] | None:
+    """Reference parse() semantics (shafa.c:47-132), copy of
+    shafa_tpu/cli.py:52-122 with the port's --backend values: returns None
+    on syntax error; value flags must be separate argv entries of length 1."""
+    opts = Options()
+    file: str | None = None
     i = 0
     while i < len(argv):
-        if argv[i] == "--backend":
-            if i + 1 >= len(argv) or argv[i + 1] not in BACKENDS:
+        key = argv[i]
+        if key == "--no-multithread":
+            opts.no_multithread = True
+        elif key == "--check":  # extension flag, not in the reference
+            opts.check = True
+        elif key == "--backend":  # extension flag, not in the reference
+            i += 1
+            if i >= len(argv) or argv[i] not in BACKENDS:
                 return None
-            backend = argv[i + 1]
-            i += 2
-            continue
-        rest.append(argv[i])
+            opts.backend = argv[i]
+        elif key == "--json":  # extension flag, not in the reference
+            i += 1
+            if i >= len(argv):
+                return None
+            opts.json_path = argv[i]
+        elif key == "--profile":  # extension flag, refused by main
+            i += 1
+            if i >= len(argv):
+                return None
+            opts.profile_dir = argv[i]
+        elif not key.startswith("-"):
+            if file is not None:
+                return None
+            file = key
+        else:
+            i += 1
+            if i >= len(argv):
+                return None
+            value = argv[i]
+            if len(key) != 2 or len(value) != 1:
+                return None
+            if key[1] == "m":
+                if value == "f":
+                    opts.module_f = True
+                elif value == "t":
+                    opts.module_t = True
+                elif value == "c":
+                    opts.module_c = True
+                elif value == "d":
+                    opts.module_d = True
+                else:
+                    return None
+            elif key[1] == "b":
+                if value not in geometry.BLOCK_SIZE_BY_FLAG:
+                    return None
+                opts.block_size = geometry.BLOCK_SIZE_BY_FLAG[value]
+            elif key[1] == "c":
+                if value == "r":
+                    opts.f_force_rle = True
+                elif value == "f":
+                    opts.f_force_freq = True
+                else:
+                    return None
+            elif key[1] == "d":
+                if value == "s":
+                    opts.d_shaf = True
+                elif value == "r":
+                    opts.d_rle = True
+                else:
+                    return None
+            else:
+                return None
         i += 1
-    parsed = parse(rest)
-    if parsed is None:
-        return None
-    opts, file = parsed
-    return dataclasses.replace(opts, backend=backend), file
+    return opts, file
+
+
+# Summaries: copies of shafa_tpu/cli.py:125-173 (the reference's stdout).
+
+def _print_summary_f(r: StageReport) -> None:
+    print("\n".join(BANNER))
+    print("Module: f (calculation of symbol frequencies)")
+    print(f"Number of blocks: {r.n_blocks}")
+    print("Size of blocks analyzed in the original file: "
+          + "/".join(map(str, r.sizes_before)))
+    if r.extra.get("compress_rle"):
+        size_f = r.extra["size_f"]
+        size_rle = sum(r.sizes_after)
+        ratio = (size_f - size_rle) / size_f * 100.0
+        rle_path = r.generated[0]
+        print(f"RLE Compression: {rle_path} ({ratio:f}% compression)")
+        print("Size of blocks analyzed in the RLE file: "
+              + "/".join(map(str, r.sizes_after)) + " bytes")
+    print(f"Module runtime (milliseconds): {r.runtime_ms:f}")
+    print("Generated files: " + ", ".join(r.generated))
+
+
+def _print_summary_t(r: StageReport) -> None:
+    print("\n".join(BANNER))
+    print("Module: T (Calculation of symbol codes)")
+    print(f"Number of blocks: {r.n_blocks}")
+    print("Size of blocks analyzed in the symbol file: "
+          + "/".join(map(str, r.sizes_before)) + " bytes")
+    print(f"Module runtime (milliseconds): {r.runtime_ms:f}")
+    print(f"Generated file {r.generated[0]}")
+
+
+def _print_summary_c(r: StageReport) -> None:
+    print("\n".join(BANNER))
+    print("Module: C (Symbol codes' codification)")
+    print(f"Number of blocks: {r.n_blocks}")
+    for i, (a, b) in enumerate(zip(r.sizes_before, r.sizes_after)):
+        pct = int(b / a * 100) if a else 0
+        print(f"Size before/after & compression rate (Block {i}): {a}/{b} -> {pct}%")
+    print(f"Module runtime (milliseconds): {r.runtime_ms:f}")
+    print(f"Generated file {r.generated[0]}")
+
+
+def _print_summary_d(r: StageReport) -> None:
+    print("\n".join(BANNER))
+    algo = r.extra.get("algo", "shafa")
+    name = {"rle": "RLE decoding", "shafa": "SHAFA decoding",
+            "shafa_rle": "SHAFA & RLE decoding"}[algo]
+    print(f"Module: D ({name})")
+    for i, (a, b) in enumerate(zip(r.sizes_before, r.sizes_after)):
+        print(f"Size before/after generating file (block {i + 1}): {a}/{b}")
+    print(f"Module runtime (in milliseconds): {r.runtime_ms:f}")
+    print(f"Generated file {r.generated[0]}")
+
+
+def _emit_json(path: str, reports: list[StageReport], error: int) -> None:
+    """Structured metrics (copy of shafa_tpu/cli.py:447-471): per-module
+    sizes, ratio, runtime and throughput."""
+    out = {"error": int(error), "modules": []}
+    for r in reports:
+        before, after = sum(r.sizes_before), sum(r.sizes_after)
+        out["modules"].append({
+            "module": r.module,
+            "n_blocks": r.n_blocks,
+            "bytes_in": before,
+            "bytes_out": after,
+            "ratio": round(after / before, 6) if before else None,
+            "runtime_ms": round(r.runtime_ms, 3),
+            "throughput_mb_s": round(before / 1e3 / r.runtime_ms, 3)
+            if r.runtime_ms else None,
+            "generated": r.generated,
+        })
+    data = json.dumps(out, indent=2)
+    if path == "-":
+        print(data)
+    else:
+        with open(path, "w") as fp:
+            fp.write(data)
 
 
 def _make_backend(opts):
@@ -64,10 +225,9 @@ def _make_backend(opts):
 
 def _streaming(path: str) -> bool:
     """True (after saying so) when path needs the streaming pipelines,
-    which import the JAX backend (pipeline.py:428,868,966)."""
-    if os.path.isfile(path) and \
-            os.path.getsize(path) > pipeline.STREAM_THRESHOLD:
-        print("streaming (> 256 MiB) is not yet ported", file=sys.stderr)
+    which are not ported yet."""
+    if pipeline._over_stream_threshold(path):
+        print(pipeline.STREAMING_NOT_PORTED, file=sys.stderr)
         return True
     return False
 
@@ -216,7 +376,7 @@ def main(argv: list[str] | None = None) -> int:
     if not argv:
         print("No file input", file=sys.stderr)
         return 1
-    parsed = parse_args(argv)
+    parsed = parse(argv)
     if parsed is None:
         print("Wrong Options' syntax", file=sys.stderr)
         return 1

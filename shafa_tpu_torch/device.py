@@ -10,24 +10,22 @@ streams.
 Routing as in the JAX backend: blocks whose codes exceed 32 bits, or whose
 packed size could overflow int32 bit offsets, go to the NumPy oracle;
 all-empty tables go to the oracle; tables that are not Kraft-complete go to
-the trie-semantics slow decode. Decode splits at 16 bits of code width.
-Blocks with 17-32-bit codes decode on the host (oracle.unpack) until the
-kernels K5/K6 are ported; ``host_decoded_blocks`` counts them.
+the trie-semantics slow decode. Decode splits at 16 bits of code width:
+codes of at most 16 bits take K2 -> K3, codes of 17-32 bits K5 -> K6 -> K1.
+``host_decoded_blocks`` counts the blocks that decode on the host by design.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import sys
 
 import numpy as np
 import torch
 
-from shafa_tpu import codes as codes_mod
-from shafa_tpu import oracle
-from shafa_tpu.errors import FileUnrecognizableError
-
+from . import codes as codes_mod
+from . import oracle
+from .errors import FileUnrecognizableError
 from .kernels import decode as kdecode
 from .kernels import emit as kemit
 from .kernels import expand as kexpand
@@ -177,8 +175,8 @@ class TorchBackend:
     fused tier off, like shafa_tpu/device.py:207-215.
     """
 
-    #: Blocks with 17-32-bit codes decoded by oracle.unpack, over all
-    #: instances (K5/K6 are not ported yet).
+    #: Blocks decoded on the host by design, over all instances: codes over
+    #: 32 bits, overflow tables, no codes, or a table that is not complete.
     host_decoded_blocks = 0
 
     def __init__(self, device=None, sequential: bool = False):
@@ -390,8 +388,8 @@ class TorchBackend:
 
     def fused_decode(self, payloads, tables, out_counts,
                      expand: bool) -> list[np.ndarray]:
-        """Device-resident D chain: decode (K2, K3) + optional RLE expand
-        (K4), one exact-size download per batch."""
+        """Device-resident D chain: decode (K2, K3 or K5, K6, K1) + optional
+        RLE expand (K4), one exact-size download per batch."""
         return self._decode(payloads, tables, out_counts, expand)
 
     def _decode(self, payloads, tables, out_counts, expand):
@@ -403,10 +401,12 @@ class TorchBackend:
         fast16, fast32 = [], []
         for i in range(n_total):
             if i in tables.overflow or maxlen[i] > 32 or n_codes[i] == 0:
+                TorchBackend.host_decoded_blocks += 1
                 dec = oracle.unpack(payloads[i], tables.row_strings(i),
                                     out_counts[i])
                 results[i] = oracle.rle_expand(dec) if expand else dec
             elif not complete[i]:  # foreign .cod with gaps: trie semantics
+                TorchBackend.host_decoded_blocks += 1
                 results[i] = _slow_decode(payloads[i], tables.row_strings(i),
                                           out_counts[i], expand)
             elif maxlen[i] <= 16:
@@ -414,30 +414,39 @@ class TorchBackend:
             else:
                 fast32.append(i)
         if fast16:
-            self._decode_group16(payloads, tables, out_counts, expand,
-                                 int(maxlen[fast16].max()), fast16, results)
+            self._decode_group(payloads, tables, out_counts, expand, fast16,
+                               results, self._decode_batch16)
         if fast32:
-            # 17-32-bit codes: host decode until K5/K6 are ported
-            TorchBackend.host_decoded_blocks += len(fast32)
-            print(f"shafa_tpu_torch: {len(fast32)} block(s) with 17-32-bit "
-                  "codes decoded on the host (kernels K5/K6 not ported yet)",
-                  file=sys.stderr)
-            for i in fast32:
-                dec = oracle.unpack(payloads[i], tables.row_strings(i),
-                                    out_counts[i])
-                results[i] = oracle.rle_expand(dec) if expand else dec
+            self._decode_group(payloads, tables, out_counts, expand, fast32,
+                               results, self._decode_batch32)
         return results
 
-    def _decode_group16(self, payloads, tables, out_counts, expand, max_len,
-                        group, results) -> None:
-        """Decode blocks whose codes are <= 16 bits: windows, K2, K3, then
-        K4 or a compaction (shafa_tpu/device.py:602-672)."""
+    def _decode_batch16(self, sub, stacked, plens, counts, out_p):
+        """One batch of blocks whose codes have at most 16 bits: K2, K3."""
+        dt = tables_to_device(sub, self.device, decode=True)
+        s_states = 8 if int(sub.lens.max()) <= 8 else 16
+        return kdecode.decode_batch(stacked, plens, dt.pc16, dt.ls, counts,
+                                    out_p, s_states)
+
+    def _decode_batch32(self, sub, stacked, plens, counts, out_p):
+        """One batch of blocks whose codes have 17-32 bits: K5, K6, K1."""
+        pc32, ls, ncodes = kdecode.rank_tables32(
+            kdecode.decode_tables_batch(sub.lens, sub.vals))
+        return kdecode.decode_batch32(stacked, plens, self._upload(pc32),
+                                      self._upload(ls), self._upload(ncodes),
+                                      counts, out_p)
+
+    def _decode_group(self, payloads, tables, out_counts, expand, group,
+                      results, decode) -> None:
+        """Decode blocks of one code width in batches, then K4 or a
+        compaction (shafa_tpu/device.py:602-672). decode(sub_tables,
+        payload, payload_lens, counts, out_p) -> (rows, underrun) runs one
+        batch on the card."""
         blocks = [np.frombuffer(payloads[i], np.uint8) for i in group]
         p = _bucket(max(b.size for b in blocks), minimum=1024)
         bsz = self._bsz(p * 2)
         counts_all = np.array([out_counts[i] for i in group], np.int32)
         out_p = _bucket(int(counts_all.max()))
-        s_states = 8 if max_len <= 8 else 16
         for lo in range(0, len(group), bsz):
             rows = blocks[lo:lo + bsz]
             nb = len(rows)
@@ -448,11 +457,9 @@ class TorchBackend:
             # padding rows need a decodable table: copy the first row's
             sub = codes_mod.CodeTables(_pad_rows(tables.lens[sel], b_rows, 0),
                                        _pad_rows(tables.vals[sel], b_rows, 0))
-            dt = tables_to_device(sub, self.device, decode=True)
             counts_dev = self._upload(counts)
-            dec, under = kdecode.decode_batch(
-                self._upload(stacked), self._upload(plens), dt.pc16, dt.ls,
-                counts_dev, out_p, s_states)
+            dec, under = decode(sub, self._upload(stacked),
+                                self._upload(plens), counts_dev, out_p)
             if bool(under[:nb].any()):
                 raise FileUnrecognizableError(
                     "compressed stream exhausted early")

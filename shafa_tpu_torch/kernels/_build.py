@@ -1,11 +1,12 @@
-"""Build and bind the CUDA kernels (K1-K4).
+"""Build and bind the CUDA kernels (K1-K6).
 
-All ``csrc/*.cu`` files compile with one ``nvcc`` call into one shared
-library with a plain C interface, loaded through ``ctypes``. The build runs
-at first use, never at import, and lands in ``shafa_tpu_torch/_build/``
-(git-ignored) under a name keyed on a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one loads at once. A failed build or
-a launch that returns a CUDA error raises: nothing falls back.
+Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects into one shared library
+with a plain C interface, loaded through ``ctypes``. The build runs at first
+use, never at import, and lands in ``shafa_tpu_torch/_build/`` (git-ignored)
+under a name keyed on a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads at once. A failed build or a launch that
+returns a CUDA error raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -22,11 +23,11 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 #: Launches per kernel: each wrapper adds one where it launches its kernel.
 launches = {"emit_bits": 0, "emit_coded": 0, "rank": 0, "fsm_decode": 0,
-            "expand": 0}
+            "expand": 0, "rank32": 0, "fsm32": 0}
 
 #: Seconds the last build took (0.0 when the library was already built).
 build_seconds = 0.0
@@ -43,6 +44,9 @@ _SIGNATURES = {
     "shafa_fsm_decode": [_P, _P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P,
                          _L, _P, _P],
     "shafa_expand": [_P, _P, _P, _I, _L, _P, _L, _P],
+    "shafa_rank_planes32": [_P, _P, _P, _P, _I, _L, _P, _P],
+    "shafa_fsm32_tile_bytes": [],
+    "shafa_fsm32": [_P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -78,12 +82,31 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    sources = sorted(str(p) for p in _CSRC.glob("*.cu"))
+    sources = sorted(_CSRC.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
     t0 = time.perf_counter()
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *sources],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+    nvcc = _nvcc()
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(sources, objs)]
+    errors = []
+    for proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc {proc.args[-1]} failed ({proc.returncode}):"
+                          f"\n{err}")
+    try:
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        r = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                            *map(str, objs)], capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, so)
     build_seconds = time.perf_counter() - t0
     return so

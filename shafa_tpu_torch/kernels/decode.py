@@ -1,13 +1,20 @@
-"""Shannon-Fano prefix decode for codes of at most 16 bits: K2 (csrc/rank.cu)
-and K3 (csrc/fsm_decode.cu).
+"""Shannon-Fano prefix decode on the device.
 
-Port of the all-kernel route of shafa_tpu/kernels/decode.py
-(_decode_fused_tpu, decode.py:1466): big-endian byte windows -> the code at
-every bit position (K2) -> the boundary state machine, which writes the
-decoded bytes into each row and flags underrun (K3). The code set is
+Port of the all-kernel routes of shafa_tpu/kernels/decode.py. The code set is
 complete and its codes in rank order are lexicographically increasing, so
 the code at a bit position is the one with the largest left-aligned value
-<= the window there (shafa_tpu/codes.py).
+<= the window there (codes.py).
+
+Codes of at most 16 bits (_decode_fused_tpu, decode.py:1466): big-endian
+byte windows -> the code at every bit position (K2, csrc/rank.cu) -> the
+boundary state machine, which writes the decoded bytes into each row and
+flags underrun (K3, csrc/fsm_decode.cu).
+
+Codes of 17-32 bits (_decode_fused32_tpu, decode.py:580): windows -> the
+code at every bit position on full 32-bit windows (K5, csrc/rank32.cu) ->
+the 32-state boundary machine, which replays each byte's symbols into two
+packs clipped at the row's count (K6, csrc/fsm32.cu) -> K1's bits emission
+concatenates the packs into the decoded rows (emit_packs).
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .emit import to_i32
+from .emit import emit_bits_rows, to_i32
 
 #: rank_tables' prefix past the row's codes: above every 16-bit window
 NO_CODE = 0x10000
@@ -72,6 +79,16 @@ def decode_tables_batch(lens: np.ndarray, vals: np.ndarray) -> dict:
     }
 
 
+def _rank_ls(tab: dict):
+    """(rank_in (n, 256) bool, ls (n, 256) int32 sym | len << 8 in rank
+    order, 0 past the row's codes) of a decode_tables_batch dict."""
+    n = np.asarray(tab["pc"]).shape[0]
+    rank_in = np.arange(256)[None, :] < np.asarray(tab["n_codes"])[:, None]
+    lens = np.cumsum(np.asarray(tab["dlen2d"]).reshape(n, 256), axis=1)
+    syms = np.cumsum(np.asarray(tab["dsym2d"]).reshape(n, 256), axis=1)
+    return rank_in, np.where(rank_in, syms | (lens << 8), 0).astype(np.int32)
+
+
 def rank_tables(tab: dict):
     """decode_tables_batch dict -> K2's tables (pc16, ls), each (n, 256)
     int32 in rank order.
@@ -83,15 +100,27 @@ def rank_tables(tab: dict):
     (decode.py:339 asserts) instead of decoding garbage.
     """
     pc = np.asarray(tab["pc"])
-    n = pc.shape[0]
     if (pc & np.uint32(0xFFFF)).max(initial=0) != 0:
         raise ValueError("rank_tables requires all codes <= 16 bits")
-    rank_in = np.arange(256)[None, :] < np.asarray(tab["n_codes"])[:, None]
+    rank_in, ls = _rank_ls(tab)
     pc16 = np.where(rank_in, pc >> np.uint32(16), NO_CODE).astype(np.int32)
-    lens = np.cumsum(np.asarray(tab["dlen2d"]).reshape(n, 256), axis=1)
-    syms = np.cumsum(np.asarray(tab["dsym2d"]).reshape(n, 256), axis=1)
-    ls = np.where(rank_in, syms | (lens << 8), 0).astype(np.int32)
     return pc16, ls
+
+
+def rank_tables32(tab: dict):
+    """decode_tables_batch dict -> K5's tables (pc32, ls, ncodes).
+
+    pc32 (n, 256) int32 holds the u32 bits of the sorted left-aligned codes
+    (zero past the row's codes), ls (n, 256) int32 sym | len << 8 (a length
+    of 32 takes 6 bits), ncodes (n,) int32. No 32-bit value lies above every
+    window, so K5's search is bounded by ncodes, not by a sentinel. The
+    counterpart of shafa_tpu/kernels/decode.py:466, whose biased compares
+    and byte-quarter fetch layout K5 does not need.
+    """
+    pc = np.asarray(tab["pc"]).astype(np.uint32)
+    _, ls = _rank_ls(tab)
+    return (np.ascontiguousarray(pc).view(np.int32), ls,
+            np.asarray(tab["n_codes"]).astype(np.int32))
 
 
 def windows32_bytes(payload: torch.Tensor) -> torch.Tensor:
@@ -233,3 +262,179 @@ def decode_batch(payload, payload_lens, pc16, ls, out_counts, out_p: int,
     windows, K2, K3. Tables from rank_tables (codes <= 16 bits)."""
     ls8 = rank_planes(windows32_bytes(payload), pc16, ls)
     return decode_rows(ls8, payload_lens, out_counts, s_states, out_p)
+
+
+# -- codes of 17-32 bits: K5, K6 --------------------------------------------
+
+def rank_planes32_plain(w32, pc32, ls, ncodes):
+    """Plain version of rank_planes32: searchsorted per bit offset, bounded
+    by the row's code count."""
+    b, p = w32.shape
+    dev = w32.device
+    w = w32.to(torch.int64) & 0xFFFFFFFF
+    nxt = torch.zeros_like(w)  # byte j+4: the low byte of window j+1
+    nxt[:, :-1] = w[:, 1:] & 0xFF
+    w40 = (w << 8) | nxt
+    nc = ncodes.to(dev, torch.int64)[:, None]
+    pc = pc32.to(torch.int64) & 0xFFFFFFFF
+    # past the row's codes, repeat its last code: sorted, and min(., nc)
+    # below keeps the search among the codes
+    last = torch.gather(pc, 1, (nc - 1).clamp(min=0))
+    pc = torch.where(torch.arange(256, device=dev) < nc, pc, last)
+    pc = pc.contiguous()
+    table = ls.to(torch.int64)
+    planes = []
+    for s in range(8):
+        ws = (w40 >> (8 - s)) & 0xFFFFFFFF
+        r = torch.minimum(torch.searchsorted(pc, ws, right=True), nc) - 1
+        v = torch.gather(table, 1, r.clamp(min=0))
+        planes.append(torch.where(r >= 0, v, 0))
+    return torch.stack(planes).reshape(8, b * p).to(torch.int32)
+
+
+def rank_planes32(w32: torch.Tensor, pc32: torch.Tensor, ls: torch.Tensor,
+                  ncodes: torch.Tensor) -> torch.Tensor:
+    """(B, P) int32 byte windows + K5 tables (rank_tables32) -> (8, B*P)
+    int32 planes, K2's layout: plane s, lane r*P + j = sym | len << 8 of the
+    code at bit 8j+s of row r (0 where no code fits, which a complete table
+    never gives). The window there spans bytes j..j+4; byte j+4 is the low
+    byte of window j+1 (zero past the row)."""
+    if w32.device.type == "cpu":
+        return rank_planes32_plain(w32, pc32, ls, ncodes)
+    b, p = w32.shape
+    dev = w32.device
+    args = [_build.ptr(w32, torch.int32, (b, p), dev),
+            _build.ptr(pc32, torch.int32, (b, 256), dev),
+            _build.ptr(ls, torch.int32, (b, 256), dev),
+            _build.ptr(ncodes, torch.int32, (b,), dev)]
+    out = torch.empty((8, b * p), dtype=torch.int32, device=dev)
+    lib = _build.library()
+    _build.launches["rank32"] += 1
+    _build.check(lib.shafa_rank_planes32(*args, b, p, out.data_ptr(),
+                                         _build.stream(dev)), "rank32")
+    return out
+
+
+def _mask_top(nbytes: torch.Tensor) -> torch.Tensor:
+    """int64 masks of the top 8 * nbytes bits of a u32 (nbytes in 0-4)."""
+    return torch.where(nbytes > 0,
+                       (0xFFFFFFFF << (32 - 8 * nbytes).clamp(max=31))
+                       & 0xFFFFFFFF, 0)
+
+
+def fsm32_packs_plain(planes, payload_lens, out_counts):
+    """Plain version of fsm32_packs: the E-table and replay of
+    decode_rows_plain at 32 states, one row at a time (a row's (P, 32)
+    functions are composed by a Hillis-Steele scan of gathers)."""
+    b = payload_lens.shape[0]
+    p = planes.shape[1] // b
+    dev = planes.device
+    lanes = planes.to(torch.int64).reshape(8, b, p)
+    plens = payload_lens.to(dev, torch.int64)
+    counts = out_counts.to(dev, torch.int64)
+    packs = torch.zeros((4, b, p), dtype=torch.int64, device=dev)
+    under = torch.zeros(b, dtype=torch.bool, device=dev)
+    consts = [torch.full((p,), s - 8, dtype=torch.int64, device=dev)
+              for s in range(8, 32)]
+    for r in range(b):
+        ln = ((lanes[:, r] >> 8) & 63).clamp(1, 32)  # (8, P)
+        sym = lanes[:, r] & 255
+        e_tab = [None] * 8  # E[bit]: state at the byte's end (decode.py:666)
+        for bit in range(7, -1, -1):
+            nb = bit + ln[bit]
+            e = nb - 8
+            for c in range(bit + 1, 8):
+                e = torch.where(nb == c, e_tab[c], e)
+            e_tab[bit] = e.clamp(0, 31)
+        f = torch.stack(e_tab + consts, dim=-1)  # (P, 32): f[j][state]
+        k = 1
+        while k < p:  # f[j] becomes byte 0 then ... then byte j
+            f = torch.cat([f[:k], torch.gather(f[k:], 1, f[:-k])], 0)
+            k *= 2
+        q = torch.zeros(p, dtype=torch.int64, device=dev)
+        q[1:] = f[:-1, 0]  # entry state of every byte
+        del f
+        nb = torch.zeros_like(q)
+        vals = [torch.zeros_like(q), torch.zeros_like(q)]  # MSB first
+        for i in range(8):  # replay
+            is_b = q < 8
+            qc = q.clamp(max=7)[None]
+            s_at = torch.gather(sym, 0, qc)[0]
+            vals[i // 4] |= torch.where(is_b, s_at, 0) << (24 - 8 * (i % 4))
+            nb += is_b
+            q = torch.where(is_b, q + torch.gather(ln, 0, qc)[0], q)
+        nb = torch.where(torch.arange(p, device=dev) < plens[r], nb, 0)
+        before = torch.cumsum(nb, 0) - nb
+        under[r] = int(nb.sum()) < int(counts[r])
+        allowed = torch.minimum((counts[r] - before).clamp(min=0), nb)
+        n1 = allowed.clamp(max=4)
+        n2 = (allowed - 4).clamp(min=0)
+        packs[0, r] = vals[0] & _mask_top(n1)
+        packs[1, r] = vals[1] & _mask_top(n2)
+        packs[2, r] = 8 * n1
+        packs[3, r] = 8 * n2
+    packs = to_i32(packs)
+    return packs[0], packs[1], packs[2], packs[3], under
+
+
+def fsm32_packs(planes: torch.Tensor, payload_lens: torch.Tensor,
+                out_counts: torch.Tensor):
+    """K5 planes -> (val1, val2, len1, len2) each (B, P) int32, and the (B,)
+    bool underrun flag: what shafa_tpu/kernels/decode.py::
+    _stage2_chain_planes returns at s_states=32.
+
+    Byte j of row r, entered in the boundary state of the 32-state machine,
+    replays its up to 8 symbols; those below the row's count (out_counts)
+    go MSB first into val1 (the first four) and val2 (the rest), with
+    len1 / len2 their bit counts. Lanes past the row's payload length
+    (payload_lens) are zero. Underrun: the payload holds fewer symbols than
+    the count.
+    """
+    if planes.device.type == "cpu":
+        return fsm32_packs_plain(planes, payload_lens, out_counts)
+    b = payload_lens.shape[0]
+    p = planes.shape[1] // b
+    dev = planes.device
+    args = [_build.ptr(planes, torch.int32, (8, b * p), dev),
+            _build.ptr(payload_lens, torch.int32, (b,), dev),
+            _build.ptr(out_counts, torch.int32, (b,), dev)]
+    lib = _build.library()
+    tiles = (b, -(-p // lib.shafa_fsm32_tile_bytes()))
+    scratch = [torch.empty(tiles + (4,), dtype=torch.int64, device=dev),  # fns
+               torch.empty(tiles, dtype=torch.int32, device=dev),  # entries
+               torch.empty(tiles, dtype=torch.int64, device=dev),  # counts
+               torch.empty(tiles, dtype=torch.int64, device=dev),  # offsets
+               torch.empty(b, dtype=torch.int64, device=dev),      # totals
+               torch.empty((b, p), dtype=torch.uint8, device=dev)]  # states
+    packs = torch.empty((4, b, p), dtype=torch.int32, device=dev)
+    under = torch.empty(b, dtype=torch.int32, device=dev)
+    _build.launches["fsm32"] += 1
+    _build.check(lib.shafa_fsm32(
+        *args, b, p, *[t.data_ptr() for t in scratch], packs.data_ptr(),
+        under.data_ptr(), _build.stream(dev)), "fsm32")
+    return packs[0], packs[1], packs[2], packs[3], under.bool()
+
+
+def emit_packs(val1, val2, len1, len2, payload_lens, stride_words: int):
+    """K6's packs -> (B, 4 * stride_words) uint8 decoded rows: lanes 2j and
+    2j+1 of a (B, 2P) batch carry byte j's two packs, which K1's bits
+    variant concatenates (shafa_tpu/kernels/decode.py:1444)."""
+    b, p = val1.shape
+    vals = torch.stack([val1, val2], dim=2).reshape(b, 2 * p)
+    lens = torch.stack([len1, len2], dim=2).reshape(b, 2 * p)
+    return emit_bits_rows(vals, lens, 2 * payload_lens, stride_words)
+
+
+def decode_batch32(payload, payload_lens, pc32, ls, ncodes, out_counts,
+                   out_p: int):
+    """(B, P) packed payloads -> ((B, out_p) uint8 decoded rows, underrun)
+    for codes of 17-32 bits: windows, K5, K6, K1. Tables from
+    rank_tables32. Row r's symbols are out[r, :out_counts[r]]; the bytes
+    after them are zero."""
+    planes = rank_planes32(windows32_bytes(payload), pc32, ls, ncodes)
+    val1, val2, len1, len2, under = fsm32_packs(planes, payload_lens,
+                                                out_counts)
+    del planes
+    rows = emit_packs(val1, val2, len1, len2, payload_lens,
+                      max(out_p, 512) // 4)
+    return rows[:, :out_p].contiguous(), under

@@ -1,10 +1,13 @@
 """Where the time of the port's main path goes.
 
     python -m shafa_tpu_torch.profile_main_path [--bytes N] [--runs R]
+                                                [--corpus mixed|text]
                                                 [--trace-dir DIR]
 
-Writes a seeded corpus of N bytes (default 200,000,000; the synthetic mix
-that chip_smoke.py uses) and drives the CLI round trip at -b m,
+Writes a seeded corpus of N bytes (default 200,000,000; one of the two that
+chip_smoke.py uses: the synthetic mix, whose codes have at most 16 bits, or
+the text with rare bytes, whose blocks have codes of 17-32 bits) and drives
+the CLI round trip at -b m,
 ``cli.main([path, "-b", "m"])`` then ``cli.main([path + ".rle.shaf"])``:
 
   1. one warm-up round trip, then R untraced ones: wall seconds of each
@@ -39,10 +42,8 @@ import time
 import numpy as np
 import torch
 
-from shafa_tpu import codes as codes_mod
-from shafa_tpu import formats, pipeline
-
-from . import cli, device
+from . import cli, device, formats, pipeline
+from . import codes as codes_mod
 from .kernels import decode as kdecode
 from .kernels import expand as kexpand
 from .kernels import histogram as khist
@@ -68,7 +69,9 @@ STAGES = [
     (khist, "histogram_batch"), (kpack, "pack_batch"),
     (kops, "compact_rows"), (kdecode, "decode_batch"),
     (kdecode, "windows32_bytes"), (kdecode, "rank_planes"),
-    (kdecode, "decode_rows"), (kexpand, "rle_expand_prep"),
+    (kdecode, "decode_rows"), (kdecode, "decode_batch32"),
+    (kdecode, "rank_planes32"), (kdecode, "fsm32_packs"),
+    (kdecode, "emit_packs"), (kexpand, "rle_expand_prep"),
     (kexpand, "rle_expand_compact"),
 ]
 
@@ -93,6 +96,32 @@ def synthetic(n: int, seed: int) -> bytes:
             parts.append(rng.integers(0, 256, ln).astype(np.uint8))
         total += ln
     return np.concatenate(parts)[:n].tobytes()
+
+
+def text_with_rare_bytes(n: int) -> bytes:
+    """Text or logs that hold occasional control or UTF-8 bytes.
+
+    The 95 printable ASCII bytes follow a Zipf law with exponent 1.1 (ranks
+    in a seeded order); each of the 161 other byte values has a probability
+    of 10^U(-8, -4); runs of 4-15 spaces cover about 15% of the file. At
+    8 MiB blocks the rare bytes get Shannon-Fano codes of 17-24 bits, and
+    RLE saves enough for R mode. The seed is fixed (11)."""
+    rng = np.random.default_rng(11)
+    printable = np.arange(32, 127)
+    other = np.setdiff1d(np.arange(256), printable)
+    prob = np.zeros(256)
+    prob[other] = 10.0 ** rng.uniform(-8, -4, other.size)
+    zipf = 1.0 / np.arange(1, printable.size + 1) ** 1.1
+    prob[rng.permutation(printable)] = zipf / zipf.sum() * (1 - prob.sum())
+    out = np.searchsorted(np.cumsum(prob), rng.random(n) * prob.sum())
+    out = np.minimum(out, 255).astype(np.uint8)
+    n_runs = int(0.15 * n / 9.5)
+    starts = rng.integers(0, max(n - 16, 1), n_runs)
+    ends = starts + rng.integers(4, 16, n_runs)
+    cover = np.bincount(starts, minlength=n + 1) \
+        - np.bincount(ends, minlength=n + 1)
+    out[np.cumsum(cover[:n]) > 0] = ord(" ")
+    return out.tobytes()
 
 
 def _sync() -> None:
@@ -217,6 +246,7 @@ def main(argv: list[str] | None = None) -> int:
                                  "profile_main_path", description=__doc__
                                  .split("\n\n")[0])
     ap.add_argument("--bytes", type=int, default=200_000_000)
+    ap.add_argument("--corpus", choices=("mixed", "text"), default="mixed")
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--trace-dir", default=None,
                     help="keep the Chrome traces here")
@@ -231,10 +261,11 @@ def main(argv: list[str] | None = None) -> int:
         smi = "nvidia-smi: not available"
     print(smi)
     print(f"device {device.default_device()}, torch {torch.__version__}, "
-          f"{args.bytes} bytes, seed 0", flush=True)
+          f"{args.bytes} bytes of the {args.corpus} corpus", flush=True)
     work = tempfile.mkdtemp(prefix="shafa_profile_")
     try:
-        data = synthetic(args.bytes, 0)
+        data = (synthetic(args.bytes, 0) if args.corpus == "mixed"
+                else text_with_rare_bytes(args.bytes))
         path = os.path.join(work, "corpus.bin")
         with open(path, "wb") as fp:
             fp.write(data)

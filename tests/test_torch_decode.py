@@ -196,7 +196,11 @@ def test_decode_state_widths_match_oracle(kind):
         oracle.unpack(payloads[0], tables.row_strings(0), blocks[0].size))
 
 
-def test_backend_routes_17_to_32_bit_blocks_to_the_counted_host_decode():
+def test_backend_routes_17_to_32_bit_blocks_to_the_counted_host_decode(
+        monkeypatch):
+    """17-32-bit blocks take the K5 -> K6 -> K1 route beside a <=16-bit
+    block, and host_decoded_blocks, which counts only the rows the backend
+    sends to the host by design, does not move."""
     rng = np.random.default_rng(55)
     a = rng.integers(0, 256, 4000, dtype=np.uint8)
     wide = _canonical(list(range(1, 20)) + [20, 20])
@@ -206,16 +210,24 @@ def test_backend_routes_17_to_32_bit_blocks_to_the_counted_host_decode():
     b = rng.integers(0, 21, 5000).astype(np.uint8)
     payloads = [oracle.pack(a, tables.lens[0], tables.vals[0]),
                 oracle.pack(b, tables.lens[1], tables.vals[1])]
+    calls = []
+    real = decode.decode_batch32
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape)
+        return real(*args, **kwargs)
+    monkeypatch.setattr(decode, "decode_batch32", counted)
     before = TorchBackend.host_decoded_blocks
-    out = TorchBackend("cpu").fused_decode(payloads, tables,
-                                           [a.size, b.size], expand=False)
-    assert TorchBackend.host_decoded_blocks == before + 1
+    out = TorchBackend("cpu").fused_decode(payloads, tables, [a.size, b.size],
+                                           expand=False)
+    assert TorchBackend.host_decoded_blocks == before
+    assert len(calls) == 1 and calls[0][0] == 1  # the 17-32-bit row alone
     np.testing.assert_array_equal(out[0], a)
     np.testing.assert_array_equal(out[1], b)
 
 
 def test_backend_underrun_raises_file_unrecognizable():
-    from shafa_tpu.errors import FileUnrecognizableError
+    from shafa_tpu_torch.errors import FileUnrecognizableError
     rng = np.random.default_rng(44)
     b0 = rng.integers(0, 256, 2048, dtype=np.uint8)
     tables, payloads = _archive([b0])

@@ -1,4 +1,4 @@
-"""K1-K4 on a CUDA card against their plain PyTorch versions.
+"""K1-K6 on a CUDA card against their plain PyTorch versions.
 
 Marked ``gpu``: without a card every test skips (decided in the ``cuda``
 fixture). On the card: ``python -m pytest tests/test_torch_kernels_gpu.py``.
@@ -13,9 +13,11 @@ import pytest
 import torch
 
 from shafa_tpu import codes as codes_mod, oracle
+from shafa_tpu_torch import pipeline
 from shafa_tpu_torch.device import (TorchBackend, _bucket, _stack_blocks,
                                     tables_to_device)
 from shafa_tpu_torch.kernels import _build, decode, emit, expand, rle
+from shafa_tpu_torch.profile_main_path import text_with_rare_bytes
 
 from corpus import edge_cases, mixed
 
@@ -177,8 +179,82 @@ def test_expand(cuda, seed):
         oracle.rle_expand(r).tobytes() for r in rows)
 
 
+def _canonical(lens_list):
+    """CodeTables row of a complete canonical code with these lengths."""
+    lens = np.zeros((1, 256), np.uint8)
+    vals = np.zeros((1, 256), np.uint64)
+    code = prev = 0
+    for s, ln in enumerate(lens_list):
+        code <<= ln - prev
+        lens[0, s] = ln
+        vals[0, s] = np.uint64(code) << np.uint64(64 - ln)
+        code += 1
+        prev = ln
+    return codes_mod.CodeTables(lens, vals)
+
+
+@pytest.mark.parametrize("kind", ["text", "canonical_32_ragged"])
+def test_rank32_and_fsm32(cuda, kind):
+    rng = np.random.default_rng(len(kind))
+    if kind == "text":
+        data = np.frombuffer(text_with_rare_bytes(3 << 20), np.uint8)
+        blocks = [data[i << 20:(i + 1) << 20] for i in range(3)]
+        tables, payloads = _archive(blocks)
+    else:  # codes of 1-32 bits; a ragged count and a truncated payload
+        wide = _canonical(list(range(1, 32)) + [32, 32])
+        blocks = [rng.integers(0, 33, n).astype(np.uint8)
+                  for n in (300_000, 70_000, 5)]
+        tables = codes_mod.CodeTables(np.repeat(wide.lens, 3, 0),
+                                      np.repeat(wide.vals, 3, 0))
+        payloads = [oracle.pack(b, tables.lens[i], tables.vals[i])
+                    for i, b in enumerate(blocks)]
+    assert 16 < int(tables.lens.max()) <= 32
+    counts = np.array([b.size for b in blocks], np.int32)
+    if kind != "text":
+        counts[0] = 1000
+        payloads[1] = payloads[1][: len(payloads[1]) // 2]
+    st, plens = _stack_blocks([np.frombuffer(p, np.uint8) for p in payloads],
+                              minimum=1024)
+    pc32, ls, ncodes = decode.rank_tables32(
+        decode.decode_tables_batch(tables.lens, tables.vals))
+    w32 = decode.windows32_bytes(torch.from_numpy(st)).numpy()
+    planes_want, planes_got = _both(decode.rank_planes32, w32, pc32, ls,
+                                    ncodes)
+    assert torch.equal(planes_got.cpu(), planes_want)
+    want, got = _both(decode.fsm32_packs, planes_want.numpy(), plens, counts)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    under = want[4].tolist()
+    assert under == ([False] * 3 if kind == "text" else [False, True, False])
+    out_p = _bucket(int(counts.max()))
+    dec, dec_under = decode.decode_batch32(
+        *[torch.from_numpy(a).cuda() for a in (st, plens, pc32, ls, ncodes,
+                                                counts)], out_p)
+    assert dec_under.cpu().tolist() == under
+    for i, n in enumerate(counts):
+        if not under[i]:
+            assert np.array_equal(dec[i, :n].cpu().numpy(), blocks[i][:n])
+
+
+def test_backend_round_trip_17_to_32_bit_codes_on_the_card(cuda, tmp_path):
+    data = text_with_rare_bytes(6 << 20)
+    path = str(tmp_path / "t.bin")
+    with open(path, "wb") as fp:
+        fp.write(data)
+    tb = TorchBackend(cuda)
+    _build.reset_launches()
+    before = TorchBackend.host_decoded_blocks
+    pipeline.compress_pipeline(path, False, False, 2 << 20, tb)
+    os.rename(path, path + ".orig")
+    pipeline.module_d_shafa(path + ".rle.shaf", True, tb)
+    with open(path, "rb") as fp:
+        assert fp.read() == data
+    assert _build.launches["rank32"] and _build.launches["fsm32"]
+    assert TorchBackend.host_decoded_blocks == before
+
+
 def test_backend_round_trip_on_the_card(cuda, tmp_path):
-    from shafa_tpu import pipeline
+    from shafa_tpu import pipeline as jpipeline
     data = mixed(3_000_000, seed=5)
     a, b = str(tmp_path / "a.bin"), str(tmp_path / "b.bin")
     for p in (a, b):
@@ -186,8 +262,8 @@ def test_backend_round_trip_on_the_card(cuda, tmp_path):
             fp.write(data)
     tb = TorchBackend(cuda)
     pipeline.compress_pipeline(a, False, False, 1 << 20, tb)
-    pipeline.compress_pipeline(b, False, False, 1 << 20,
-                               pipeline.NumpyBackend())
+    jpipeline.compress_pipeline(b, False, False, 1 << 20,
+                                jpipeline.NumpyBackend())
     for ext in (".rle", ".rle.freq", ".rle.cod", ".rle.shaf"):
         with open(a + ext, "rb") as fa, open(b + ext, "rb") as fb:
             assert fa.read() == fb.read(), ext

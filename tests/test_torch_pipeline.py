@@ -147,10 +147,10 @@ def test_cli_without_cuda_exits_1(tmp_path, monkeypatch, capsys):
 
 
 def test_cli_refusals(tmp_path, monkeypatch, capsys):
-    from shafa_tpu import pipeline
+    from shafa_tpu_torch import pipeline
     monkeypatch.setenv("SHAFA_TORCH_DEVICE", "cpu")
     path = _write(str(tmp_path / "f.bin"), mixed(5000, seed=2))
-    assert cli.parse_args([path, "--backend", "jax"]) is None
+    assert cli.parse([path, "--backend", "jax"]) is None
     assert cli.main([path, "--backend", "jax"]) == 1
     assert "Wrong Options' syntax" in capsys.readouterr().err
     assert cli.main([path, "--profile", str(tmp_path / "p")]) == 1
