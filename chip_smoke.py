@@ -5,12 +5,14 @@
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. the build of the CUDA kernels from shafa_tpu_torch/kernels/csrc/;
-  3. every kernel of the main paths against its plain PyTorch version on
-     the card, on the paths' shapes, exact equality, both timed with CUDA
-     events: K1-K4 on the 200 MB mixed corpus's batches, K5 and K6 on the
-     (4, 8 MiB) decode batch of the 200 MB text corpus; beside each, the
-     least time the card could take (bytes over 3.35 TB/s) and, for K4,
-     torch.repeat_interleave, the one PyTorch call that computes the same;
+  3. every kernel of the paths against its plain PyTorch version on the
+     card, on the paths' shapes, exact equality, both timed with CUDA
+     events: K1-K4 and K7 on the 200 MB mixed corpus's batches (K7 on the
+     planes K3 takes; then K2 -> K7 -> K1 must give K3's rows), K5 and K6
+     on the (4, 8 MiB) decode batch of the 200 MB text corpus; beside each,
+     the least time the card could take (bytes over 3.35 TB/s) and, for
+     K4, torch.repeat_interleave, the one PyTorch call that computes the
+     same;
   4. K5 and the whole 17-32-bit decode chain on a hand-built complete table
      with codes of 26-32 bits against the NumPy oracle (the case of the JAX
      kernel's window fault);
@@ -20,12 +22,15 @@ Phases, each fatal on failure:
      (codes of at most 16 bits: K1-K4) and the 200,000,000-byte text corpus
      with rare bytes (every block with codes of 17-32 bits: K1, K5, K6,
      K4); no block decoded on the host on either;
-  6. the sidecars of a 16 MB mixed and a 16 MB random file at -b K against
+  6. the decode-stage path: ``shafa_tpu_torch.bench_decode_stages.main``
+     at its defaults (64 MiB of the synthetic corpus in 8 MiB blocks; K2,
+     K7, K1, K3, K4 and its own checks), launch counts read around it;
+  7. the sidecars of a 16 MB mixed and a 16 MB random file at -b K against
      the same CLI with ``--backend numpy``; no module of shafa_tpu and no
      jax imported in the whole run.
 
 The line before the last holds the kernels' JSON record (``launches`` sums
-the two main paths' counts, ``launches_by_path`` keeps each); the last line is
+the three paths' counts, ``launches_by_path`` keeps each); the last line is
 the device JSON line. Without a CUDA card, or without the repository beside
 it, the script exits 1 and prints no result.
 """
@@ -61,6 +66,8 @@ SOURCES = {
              "shafa_tpu/kernels/decode.py:365"),
     "fsm_decode": ("shafa_tpu_torch/kernels/csrc/fsm_decode.cu",
                    "shafa_tpu/kernels/decode.py:1142"),
+    "fsm_packs": ("shafa_tpu_torch/kernels/csrc/fsm_decode.cu",
+                  "shafa_tpu/kernels/decode.py:930"),
     "expand": ("shafa_tpu_torch/kernels/csrc/expand.cu",
                "shafa_tpu/kernels/expand_pallas.py:64"),
     "rank32": ("shafa_tpu_torch/kernels/csrc/rank32.cu",
@@ -73,6 +80,8 @@ SOURCES = {
 PATH_KERNELS = {
     "mixed": ("emit_bits", "emit_coded", "rank", "fsm_decode", "expand"),
     "text": ("emit_bits", "emit_coded", "rank32", "fsm32", "expand"),
+    "decode_stages": ("fsm_packs", "rank", "fsm_decode", "expand",
+                      "emit_bits"),
 }
 
 
@@ -155,9 +164,9 @@ def encode_on_card(data: bytes, dev, rows: int):
 
 
 def kernel_phase(data: bytes, dev) -> list[dict]:
-    """K1-K4 against their plain versions on the main path's shapes: one
-    (8, 8 MiB) batch of the corpus for K1, and the (4, 8 MiB) decode batch
-    that the main path builds from its payloads for K2-K4."""
+    """K1-K4 and K7 against their plain versions on the main path's shapes:
+    one (8, 8 MiB) batch of the corpus for K1, and the (4, 8 MiB) decode
+    batch that the main path builds from its payloads for K2-K4 and K7."""
     import torch
     from shafa_tpu_torch import codes as codes_mod
     from shafa_tpu_torch.device import (_bucket, _stack_blocks,
@@ -190,7 +199,7 @@ def kernel_phase(data: bytes, dev) -> list[dict]:
     drows = 4
     pst, plens = _stack_blocks(payloads[:drows], minimum=1024)
     # per payload byte: K2/K5 read a 4-byte window and write 8 int32 plane
-    # entries; K3/K6 read those 32 bytes, K6 writes 4 int32 packs
+    # entries; K3/K6/K7 read those 32 bytes, K6/K7 write 4 int32 packs
     payload = int(plens.sum())
     sub = codes_mod.CodeTables(tables.lens[:drows], tables.vals[:drows])
     if int(sub.lens.max()) > 16:
@@ -219,7 +228,20 @@ def kernel_phase(data: bytes, dev) -> list[dict]:
     dec, under = decode.decode_rows(ls8, pl, cnt, s_states, out_p)
     if bool(under.any()):
         fail("K3 flagged underrun on the corpus")
+    r = compare("K7 fsm_packs",
+                lambda: decode.fsm_packs(ls8, pl, cnt, s_states),
+                lambda: decode.fsm_packs_plain(ls8, pl, cnt, s_states),
+                48 * payload + nbytes(pl, cnt) + drows, lambda t: list(t))
+    results.append(dict(name="fsm_packs", shape=[drows, pst.shape[1]], **r))
     del ls8
+    rows, under_v4 = decode.decode_batch_packs(
+        torch.from_numpy(pst).to(dev), pl, dd.pc16, dd.ls, cnt, out_p,
+        s_states)
+    if not (torch.equal(rows, dec) and torch.equal(under_v4, under)):
+        fail("K2 -> K7 -> K1 does not give K3's rows")
+    del rows
+    print(f"K2 -> K7 -> K1 gives K3's rows on the mixed corpus's (4, 8 MiB) "
+          f"decode batch at {s_states} states", flush=True)
     prep = expand.rle_expand_prep(dec, cnt)
     total = int(prep["out_len"].sum())
     if total != drows * BLOCK:
@@ -402,6 +424,27 @@ def main_path(work: str, name: str, data: bytes) -> dict:
                                             int(maxlen.max())))
 
 
+def decode_stages_path() -> dict:
+    """The port of bench_decode_stages.py at its defaults, in process, with
+    the launch counts read around it."""
+    import torch
+    from shafa_tpu_torch import bench_decode_stages
+    from shafa_tpu_torch.kernels import _build
+
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = bench_decode_stages.main([])
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    if rc != 0:
+        fail(f"bench_decode_stages exited {rc}")
+    missing = [k for k in PATH_KERNELS["decode_stages"] if launches[k] < 1]
+    if missing:
+        fail(f"decode_stages: {missing} not launched: {launches}")
+    return dict(launches=launches, wall_s=wall)
+
+
 def sidecar_phase(work: str) -> None:
     """Port's -b K sidecars == the NumPy backend's (--backend numpy)."""
     sys.path.insert(0, os.path.join(os.path.dirname(
@@ -503,6 +546,10 @@ def main() -> int:
             fail(f"text: longest codes {runs['text']['maxlen']}, not all "
                  "17-32 bits")
         del corpora
+        res = runs["decode_stages"] = decode_stages_path()
+        print(f"decode_stages path (bench_decode_stages.main at its "
+              f"defaults) on {card}: {res['wall_s']:.1f} s, its checks "
+              f"passed, launches {res['launches']}", flush=True)
         sidecar_phase(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)

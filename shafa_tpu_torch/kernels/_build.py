@@ -1,4 +1,4 @@
-"""Build and bind the CUDA kernels (K1-K6).
+"""Build and bind the CUDA kernels (K1-K7).
 
 Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all started
 together, and one more ``nvcc`` links the objects into one shared library
@@ -27,7 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: Launches per kernel: each wrapper adds one where it launches its kernel.
 launches = {"emit_bits": 0, "emit_coded": 0, "rank": 0, "fsm_decode": 0,
-            "expand": 0, "rank32": 0, "fsm32": 0}
+            "expand": 0, "rank32": 0, "fsm32": 0, "fsm_packs": 0}
 
 #: Seconds the last build took (0.0 when the library was already built).
 build_seconds = 0.0
@@ -43,6 +43,8 @@ _SIGNATURES = {
     "shafa_fsm_tile_bytes": [],
     "shafa_fsm_decode": [_P, _P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P,
                          _L, _P, _P],
+    "shafa_fsm_packs": [_P, _P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P],
     "shafa_expand": [_P, _P, _P, _I, _L, _P, _L, _P],
     "shafa_rank_planes32": [_P, _P, _P, _P, _I, _L, _P, _P],
     "shafa_fsm32_tile_bytes": [],

@@ -15,6 +15,11 @@ code at every bit position on full 32-bit windows (K5, csrc/rank32.cu) ->
 the 32-state boundary machine, which replays each byte's symbols into two
 packs clipped at the row's count (K6, csrc/fsm32.cu) -> K1's bits emission
 concatenates the packs into the decoded rows (emit_packs).
+
+The v4 chain, codes of at most 16 bits, which only the decode-stage
+benchmark runs (bench_decode_stages.py:141-183): windows -> K2 -> the 8- or
+16-state machine writing packs (K7, csrc/fsm_decode.cu, decode.py:1389)
+-> emit_packs (decode_batch_packs).
 """
 
 from __future__ import annotations
@@ -216,6 +221,17 @@ def decode_rows_plain(ls8, payload_lens, out_counts, s_states: int,
     return out.view(b, out_p), under
 
 
+def _fsm_scratch(lib, b: int, p: int, dev) -> list[torch.Tensor]:
+    """Scratch of K3 and K7: per tile (B, n_tiles), per row, per byte."""
+    tiles = (b, -(-p // lib.shafa_fsm_tile_bytes()))
+    return [torch.empty(tiles, dtype=torch.int64, device=dev),  # u64 fns
+            torch.empty(tiles, dtype=torch.int32, device=dev),  # entries
+            torch.empty(tiles, dtype=torch.int64, device=dev),  # counts
+            torch.empty(tiles, dtype=torch.int64, device=dev),  # offsets
+            torch.empty(b, dtype=torch.int64, device=dev),      # totals
+            torch.empty((b, p), dtype=torch.uint8, device=dev)]  # states
+
+
 def decode_rows(ls8: torch.Tensor, payload_lens: torch.Tensor,
                 out_counts: torch.Tensor, s_states: int, out_p: int):
     """K2 planes -> ((B, out_p) uint8 decoded rows, (B,) bool underrun).
@@ -237,15 +253,7 @@ def decode_rows(ls8: torch.Tensor, payload_lens: torch.Tensor,
             _build.ptr(payload_lens, torch.int32, (b,), dev),
             _build.ptr(out_counts, torch.int32, (b,), dev)]
     lib = _build.library()
-    n_tiles = -(-p // lib.shafa_fsm_tile_bytes())
-
-    tiles = (b, n_tiles)
-    scratch = [torch.empty(tiles, dtype=torch.int64, device=dev),  # u64 fns
-               torch.empty(tiles, dtype=torch.int32, device=dev),  # entries
-               torch.empty(tiles, dtype=torch.int64, device=dev),  # counts
-               torch.empty(tiles, dtype=torch.int64, device=dev),  # offsets
-               torch.empty(b, dtype=torch.int64, device=dev),      # totals
-               torch.empty((b, p), dtype=torch.uint8, device=dev)]  # states
+    scratch = _fsm_scratch(lib, b, p, dev)
     out = torch.zeros((b, out_p), dtype=torch.uint8, device=dev)
     under = torch.empty(b, dtype=torch.int32, device=dev)
     _build.launches["fsm_decode"] += 1
@@ -322,22 +330,25 @@ def _mask_top(nbytes: torch.Tensor) -> torch.Tensor:
                        & 0xFFFFFFFF, 0)
 
 
-def fsm32_packs_plain(planes, payload_lens, out_counts):
-    """Plain version of fsm32_packs: the E-table and replay of
-    decode_rows_plain at 32 states, one row at a time (a row's (P, 32)
-    functions are composed by a Hillis-Steele scan of gathers)."""
+def fsm_packs_plain(planes, payload_lens, out_counts, s_states: int):
+    """Plain version of fsm_packs (s_states 8 or 16) and fsm32_packs
+    (s_states 32): the E-table and replay of decode_rows_plain, one row at a
+    time (a row's (P, s_states) functions are composed by a Hillis-Steele
+    scan of gathers). Code lengths are `& 31` below 32 states and `& 63` at
+    32 (a length of 32 takes 6 bits), clipped to [1, s_states]."""
     b = payload_lens.shape[0]
     p = planes.shape[1] // b
     dev = planes.device
+    len_mask = 63 if s_states == 32 else 31
     lanes = planes.to(torch.int64).reshape(8, b, p)
     plens = payload_lens.to(dev, torch.int64)
     counts = out_counts.to(dev, torch.int64)
     packs = torch.zeros((4, b, p), dtype=torch.int64, device=dev)
     under = torch.zeros(b, dtype=torch.bool, device=dev)
     consts = [torch.full((p,), s - 8, dtype=torch.int64, device=dev)
-              for s in range(8, 32)]
+              for s in range(8, s_states)]
     for r in range(b):
-        ln = ((lanes[:, r] >> 8) & 63).clamp(1, 32)  # (8, P)
+        ln = ((lanes[:, r] >> 8) & len_mask).clamp(1, s_states)  # (8, P)
         sym = lanes[:, r] & 255
         e_tab = [None] * 8  # E[bit]: state at the byte's end (decode.py:666)
         for bit in range(7, -1, -1):
@@ -345,8 +356,8 @@ def fsm32_packs_plain(planes, payload_lens, out_counts):
             e = nb - 8
             for c in range(bit + 1, 8):
                 e = torch.where(nb == c, e_tab[c], e)
-            e_tab[bit] = e.clamp(0, 31)
-        f = torch.stack(e_tab + consts, dim=-1)  # (P, 32): f[j][state]
+            e_tab[bit] = e.clamp(0, s_states - 1)
+        f = torch.stack(e_tab + consts, dim=-1)  # (P, S): f[j][state]
         k = 1
         while k < p:  # f[j] becomes byte 0 then ... then byte j
             f = torch.cat([f[:k], torch.gather(f[k:], 1, f[:-k])], 0)
@@ -375,6 +386,11 @@ def fsm32_packs_plain(planes, payload_lens, out_counts):
         packs[3, r] = 8 * n2
     packs = to_i32(packs)
     return packs[0], packs[1], packs[2], packs[3], under
+
+
+def fsm32_packs_plain(planes, payload_lens, out_counts):
+    """Plain version of fsm32_packs."""
+    return fsm_packs_plain(planes, payload_lens, out_counts, 32)
 
 
 def fsm32_packs(planes: torch.Tensor, payload_lens: torch.Tensor,
@@ -425,6 +441,14 @@ def emit_packs(val1, val2, len1, len2, payload_lens, stride_words: int):
     return emit_bits_rows(vals, lens, 2 * payload_lens, stride_words)
 
 
+def _rows_of_packs(val1, val2, len1, len2, under, payload_lens,
+                   out_p: int):
+    """K6's or K7's packs -> ((B, out_p) uint8 decoded rows, underrun)."""
+    rows = emit_packs(val1, val2, len1, len2, payload_lens,
+                      max(out_p, 512) // 4)
+    return rows[:, :out_p].contiguous(), under
+
+
 def decode_batch32(payload, payload_lens, pc32, ls, ncodes, out_counts,
                    out_p: int):
     """(B, P) packed payloads -> ((B, out_p) uint8 decoded rows, underrun)
@@ -432,9 +456,53 @@ def decode_batch32(payload, payload_lens, pc32, ls, ncodes, out_counts,
     rank_tables32. Row r's symbols are out[r, :out_counts[r]]; the bytes
     after them are zero."""
     planes = rank_planes32(windows32_bytes(payload), pc32, ls, ncodes)
-    val1, val2, len1, len2, under = fsm32_packs(planes, payload_lens,
-                                                out_counts)
+    packs = fsm32_packs(planes, payload_lens, out_counts)
     del planes
-    rows = emit_packs(val1, val2, len1, len2, payload_lens,
-                      max(out_p, 512) // 4)
-    return rows[:, :out_p].contiguous(), under
+    return _rows_of_packs(*packs, payload_lens, out_p)
+
+
+# -- the v4 chain: K7 ---------------------------------------------------------
+
+def fsm_packs(planes: torch.Tensor, payload_lens: torch.Tensor,
+              out_counts: torch.Tensor, s_states: int):
+    """K2 planes -> (val1, val2, len1, len2) each (B, P) int32, and the (B,)
+    bool underrun flag: what shafa_tpu/kernels/decode.py::_stage2_chain_ls
+    returns.
+
+    fsm32_packs' contract on the 8- or 16-state machine (s_states >= the
+    batch's longest code; code lengths `& 31`): byte j of row r replays its
+    symbols; those below the row's count go MSB first into val1 (the first
+    four) and val2 (the rest), with len1 / len2 their bit counts. Lanes past
+    the row's payload are zero, where the TPU kernel leaves its tiles there
+    unwritten. Underrun: the payload holds fewer symbols than the count.
+    """
+    if s_states not in (8, 16):
+        raise ValueError("s_states must be 8 or 16")
+    if planes.device.type == "cpu":
+        return fsm_packs_plain(planes, payload_lens, out_counts, s_states)
+    b = payload_lens.shape[0]
+    p = planes.shape[1] // b
+    dev = planes.device
+    args = [_build.ptr(planes, torch.int32, (8, b * p), dev),
+            _build.ptr(payload_lens, torch.int32, (b,), dev),
+            _build.ptr(out_counts, torch.int32, (b,), dev)]
+    lib = _build.library()
+    scratch = _fsm_scratch(lib, b, p, dev)
+    packs = torch.empty((4, b, p), dtype=torch.int32, device=dev)
+    under = torch.empty(b, dtype=torch.int32, device=dev)
+    _build.launches["fsm_packs"] += 1
+    _build.check(lib.shafa_fsm_packs(
+        *args, s_states, b, p, *[t.data_ptr() for t in scratch],
+        packs.data_ptr(), under.data_ptr(), _build.stream(dev)), "fsm_packs")
+    return packs[0], packs[1], packs[2], packs[3], under.bool()
+
+
+def decode_batch_packs(payload, payload_lens, pc16, ls, out_counts,
+                       out_p: int, s_states: int):
+    """decode_batch through the v4 chain: windows, K2, K7, K1
+    (_stage2_chain_ls then _emit_packs, decode.py:1389, :1444). Tables from
+    rank_tables (codes <= 16 bits); returns what decode_batch returns."""
+    planes = rank_planes(windows32_bytes(payload), pc16, ls)
+    packs = fsm_packs(planes, payload_lens, out_counts, s_states)
+    del planes
+    return _rows_of_packs(*packs, payload_lens, out_p)

@@ -1,4 +1,4 @@
-"""K1-K6 on a CUDA card against their plain PyTorch versions.
+"""K1-K7 on a CUDA card against their plain PyTorch versions.
 
 Marked ``gpu``: without a card every test skips (decided in the ``cuda``
 fixture). On the card: ``python -m pytest tests/test_torch_kernels_gpu.py``.
@@ -112,8 +112,10 @@ def _archive(blocks):
     return tables, payloads
 
 
-@pytest.mark.parametrize("kind", ["all_8bit", "skewed", "ragged_underrun"])
-def test_rank_and_fsm_decode(cuda, kind):
+def _decode16_case(kind):
+    """Blocks, tables, payload batch and counts with codes of at most 16
+    bits: all 8-bit codes, a skewed alphabet, or a ragged count and a
+    truncated payload."""
     rng = np.random.default_rng(len(kind))
     if kind == "all_8bit":
         b0 = np.tile(np.arange(256, dtype=np.uint8), 64)
@@ -135,11 +137,17 @@ def test_rank_and_fsm_decode(cuda, kind):
     st, plens = _stack_blocks([np.frombuffer(p, np.uint8) for p in payloads],
                               minimum=1024)
     dt = tables_to_device(tables, "cpu", decode=True)
+    s_states = 8 if int(tables.lens.max()) <= 8 else 16
+    return blocks, counts, st, plens, dt, s_states
+
+
+@pytest.mark.parametrize("kind", ["all_8bit", "skewed", "ragged_underrun"])
+def test_rank_and_fsm_decode(cuda, kind):
+    blocks, counts, st, plens, dt, s_states = _decode16_case(kind)
     w32 = decode.windows32_bytes(torch.from_numpy(st)).numpy()
     ls_want, ls_got = _both(decode.rank_planes, w32, dt.pc16.numpy(),
                             dt.ls.numpy())
     assert torch.equal(ls_got.cpu(), ls_want)
-    s_states = 8 if int(tables.lens.max()) <= 8 else 16
     out_p = _bucket(int(counts.max()))
     want, got = _both(
         lambda ls8, pl, ct: decode.decode_rows(ls8, pl, ct, s_states, out_p),
@@ -153,6 +161,31 @@ def test_rank_and_fsm_decode(cuda, kind):
         if not want[1][i]:
             assert np.array_equal(got[0][i, :n].cpu().numpy(),
                                   blocks[i][:n])
+
+
+@pytest.mark.parametrize("kind", ["all_8bit", "skewed", "ragged_underrun"])
+def test_fsm_packs(cuda, kind):
+    """K7 against its plain version at 8 (all_8bit) and 16 states, and the
+    v4 chain (K2, K7, K1) against the K2 -> K3 route on the card."""
+    blocks, counts, st, plens, dt, s_states = _decode16_case(kind)
+    assert s_states == (8 if kind == "all_8bit" else 16)
+    ls8 = decode.rank_planes(decode.windows32_bytes(torch.from_numpy(st)),
+                             dt.pc16, dt.ls).numpy()
+    want, got = _both(lambda *a: decode.fsm_packs(*a, s_states), ls8, plens,
+                      counts)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    args = [torch.from_numpy(a).cuda() for a in (st, plens)] + [
+        dt.pc16.cuda(), dt.ls.cuda(), torch.from_numpy(counts).cuda(),
+        _bucket(int(counts.max())), s_states]
+    before = _build.launches["fsm_packs"]
+    rows, under = decode.decode_batch_packs(*args)
+    assert _build.launches["fsm_packs"] == before + 1
+    k3_rows, k3_under = decode.decode_batch(*args)
+    assert torch.equal(rows, k3_rows) and torch.equal(under, k3_under)
+    assert under.tolist() == ([False, True, False]
+                              if kind == "ragged_underrun"
+                              else [False] * len(blocks))
 
 
 @pytest.mark.parametrize("seed", [0, 1])
