@@ -4,12 +4,14 @@
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. the build of the CUDA kernels from shafa_tpu_torch/kernels/csrc/;
+  2. the build of the CUDA kernels from shafa_tpu_torch/kernels/csrc/, and
+     K6's registers and spills per kernel as ``nvcc -Xptxas -v`` gave them;
   3. every kernel of the paths against its plain PyTorch version on the
      card, on the paths' shapes, exact equality, both timed with CUDA
      events: K1-K4 and K7 on the 200 MB mixed corpus's batches (K7 on the
      planes K3 takes; then K2 -> K7 -> K1 must give K3's rows), K5 and K6
-     on the (4, 8 MiB) decode batch of the 200 MB text corpus; beside each,
+     (its interleaved (B, 2P) vals and lens and its underrun flags) on the
+     (4, 8 MiB) decode batch of the 200 MB text corpus; beside each,
      the least time the card could take (bytes over 3.35 TB/s) and, for
      K4, torch.repeat_interleave, the one PyTorch call that computes the
      same;
@@ -508,6 +510,12 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds:.2f} s, one process per source)",
           flush=True)
+    k6 = _build.resources("fsm32_")
+    if not k6:
+        fail("no ptxas report of K6's kernels")
+    print("K6 registers and spills (nvcc -Xptxas -v): " + "; ".join(
+        f"{name} {regs} registers, {st} B spill stores, {ld} B spill loads"
+        for name, (regs, st, ld) in sorted(k6.items())), flush=True)
 
     from shafa_tpu_torch.profile_main_path import (synthetic,
                                                    text_with_rare_bytes)

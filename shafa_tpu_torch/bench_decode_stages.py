@@ -29,8 +29,9 @@ SHAFA_BENCH_V3 (default off) times K6 at 32 states on K2's planes, the
 second half of the original's legacy branch, whose XLA stage 1 has no
 counterpart. SHAFA_BENCH_XLA_EXPAND has no counterpart. Checks, each
 making main() return 1: K7 -> emit_packs gives K3's rows and underrun
-flags (and K6 gives K7's packs, with SHAFA_BENCH_V3); K4 gives its plain
-version's bytes; the expanded bytes equal the corpus.
+flags (and, with SHAFA_BENCH_V3, K6 gives K7's packs as interleave_packs
+lays them out); K4 gives its plain version's bytes; the expanded bytes
+equal the corpus.
 """
 
 from __future__ import annotations
@@ -178,7 +179,9 @@ def main(argv: list[str] | None = None) -> int:
                    dev)
             _check("K6 gives K7's packs", all(
                 torch.equal(a, b) for a, b in
-                zip(kdecode.fsm32_packs(ls8, pl, cts), packs)), failed)
+                zip(kdecode.fsm32_packs(ls8, pl, cts),
+                    (*kdecode.interleave_packs(*packs[:4]), packs[4]))),
+                failed)
         del ls8
         timeit("emit_packs (K1)",
                lambda: kdecode.emit_packs(*packs[:4], pl, stride_words),

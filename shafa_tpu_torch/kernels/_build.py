@@ -5,8 +5,10 @@ together, and one more ``nvcc`` links the objects into one shared library
 with a plain C interface, loaded through ``ctypes``. The build runs at first
 use, never at import, and lands in ``shafa_tpu_torch/_build/`` (git-ignored)
 under a name keyed on a hash of the sources and flags, so an edited source
-rebuilds and an unchanged one loads at once. A failed build or a launch that
-returns a CUDA error raises: nothing falls back.
+rebuilds and an unchanged one loads at once; what ``-Xptxas -v`` reports of
+each kernel's registers and spills is kept beside the library
+(``resources``). A failed build or a launch that returns a CUDA error
+raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,7 +26,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 #: Launches per kernel: each wrapper adds one where it launches its kernel.
 launches = {"emit_bits": 0, "emit_coded": 0, "rank": 0, "fsm_decode": 0,
@@ -48,7 +51,7 @@ _SIGNATURES = {
     "shafa_expand": [_P, _P, _P, _I, _L, _P, _L, _P],
     "shafa_rank_planes32": [_P, _P, _P, _P, _I, _L, _P, _P],
     "shafa_fsm32_tile_bytes": [],
-    "shafa_fsm32": [_P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    "shafa_fsm32": [_P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -92,9 +95,10 @@ def build() -> Path:
                                str(src)], stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for src, obj in zip(sources, objs)]
-    errors = []
+    errors, report = [], []
     for proc in procs:
-        _, err = proc.communicate()
+        out, err = proc.communicate()
+        report.append(out + err)
         if proc.returncode != 0:
             errors.append(f"nvcc {proc.args[-1]} failed ({proc.returncode}):"
                           f"\n{err}")
@@ -109,9 +113,46 @@ def build() -> Path:
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
+    so.with_suffix(".ptxas.txt").write_text("".join(report))
     os.replace(tmp, so)
     build_seconds = time.perf_counter() - t0
     return so
+
+
+_LENGTH = re.compile(r"\d+")
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name from its mangled one: the first length-prefixed
+    name after _Z / _ZN that is not an anonymous namespace
+    (_GLOBAL__N_...)."""
+    m = re.match(r"_ZN?", mangled)
+    pos = m.end() if m else 0
+    while m := _LENGTH.match(mangled, pos):
+        pos = m.end() + int(m.group())
+        name = mangled[m.end():pos]
+        if not name.startswith("_GLOBAL__N"):
+            return name
+    return mangled
+
+
+def resources(prefix: str) -> dict[str, tuple[int, int, int]]:
+    """{kernel: (registers, spill store bytes, spill load bytes)} of the
+    built kernels whose names start with prefix, as ``nvcc -Xptxas -v``
+    reported them when the library was built."""
+    text = build().with_suffix(".ptxas.txt").read_text()
+    found, name, spills = {}, None, (0, 0)
+    for line in text.splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = _kernel_name(m.group(1))
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            if name.startswith(prefix):
+                found[name] = (int(m.group(1)), *spills)
+            name, spills = None, (0, 0)
+    return found
 
 
 def library() -> ctypes.CDLL:

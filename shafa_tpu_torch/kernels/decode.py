@@ -13,13 +13,14 @@ flags underrun (K3, csrc/fsm_decode.cu).
 Codes of 17-32 bits (_decode_fused32_tpu, decode.py:580): windows -> the
 code at every bit position on full 32-bit windows (K5, csrc/rank32.cu) ->
 the 32-state boundary machine, which replays each byte's symbols into two
-packs clipped at the row's count (K6, csrc/fsm32.cu) -> K1's bits emission
-concatenates the packs into the decoded rows (emit_packs).
+packs clipped at the row's count, interleaved as (B, 2P) lanes (K6,
+csrc/fsm32.cu) -> K1's bits emission concatenates them into the decoded
+rows.
 
 The v4 chain, codes of at most 16 bits, which only the decode-stage
 benchmark runs (bench_decode_stages.py:141-183): windows -> K2 -> the 8- or
-16-state machine writing packs (K7, csrc/fsm_decode.cu, decode.py:1389)
--> emit_packs (decode_batch_packs).
+16-state machine writing four pack arrays (K7, csrc/fsm_decode.cu,
+decode.py:1389) -> interleave_packs -> K1 (emit_packs, decode_batch_packs).
 """
 
 from __future__ import annotations
@@ -388,77 +389,89 @@ def fsm_packs_plain(planes, payload_lens, out_counts, s_states: int):
     return packs[0], packs[1], packs[2], packs[3], under
 
 
+def interleave_packs(val1, val2, len1, len2):
+    """Four (B, P) pack arrays -> (vals, lens) each (B, 2P): lane 2j holds
+    byte j's first pack, lane 2j + 1 its second, the layout K1's bits
+    variant concatenates (shafa_tpu/kernels/decode.py:1444)."""
+    b, p = val1.shape
+    return (torch.stack([val1, val2], dim=2).reshape(b, 2 * p),
+            torch.stack([len1, len2], dim=2).reshape(b, 2 * p))
+
+
 def fsm32_packs_plain(planes, payload_lens, out_counts):
     """Plain version of fsm32_packs."""
-    return fsm_packs_plain(planes, payload_lens, out_counts, 32)
+    *packs, under = fsm_packs_plain(planes, payload_lens, out_counts, 32)
+    return (*interleave_packs(*packs), under)
 
 
 def fsm32_packs(planes: torch.Tensor, payload_lens: torch.Tensor,
                 out_counts: torch.Tensor):
-    """K5 planes -> (val1, val2, len1, len2) each (B, P) int32, and the (B,)
-    bool underrun flag: what shafa_tpu/kernels/decode.py::
-    _stage2_chain_planes returns at s_states=32.
+    """K5 planes -> (vals, lens) each (B, 2P) int32, and the (B,) bool
+    underrun flag: what shafa_tpu/kernels/decode.py::_stage2_chain_planes
+    returns at s_states=32, interleaved as K1's bits variant reads it.
 
     Byte j of row r, entered in the boundary state of the 32-state machine,
     replays its up to 8 symbols; those below the row's count (out_counts)
-    go MSB first into val1 (the first four) and val2 (the rest), with
-    len1 / len2 their bit counts. Lanes past the row's payload length
-    (payload_lens) are zero. Underrun: the payload holds fewer symbols than
-    the count.
+    go MSB first into lane 2j (the first four) and lane 2j + 1 (the rest)
+    of vals, with their bit counts in the same lanes of lens. Lanes past
+    the row's payload length (payload_lens) are zero. Underrun: the payload
+    holds fewer symbols than the count. On the card P must be a multiple of
+    8 (the batches of the decode route are powers of two >= 1024).
     """
     if planes.device.type == "cpu":
         return fsm32_packs_plain(planes, payload_lens, out_counts)
     b = payload_lens.shape[0]
     p = planes.shape[1] // b
+    if p % 8:
+        raise ValueError(f"fsm32_packs: payload width {p} is not a multiple "
+                         "of 8")
     dev = planes.device
     args = [_build.ptr(planes, torch.int32, (8, b * p), dev),
             _build.ptr(payload_lens, torch.int32, (b,), dev),
             _build.ptr(out_counts, torch.int32, (b,), dev)]
     lib = _build.library()
-    tiles = (b, -(-p // lib.shafa_fsm32_tile_bytes()))
-    scratch = [torch.empty(tiles + (4,), dtype=torch.int64, device=dev),  # fns
-               torch.empty(tiles, dtype=torch.int32, device=dev),  # entries
-               torch.empty(tiles, dtype=torch.int64, device=dev),  # counts
-               torch.empty(tiles, dtype=torch.int64, device=dev),  # offsets
-               torch.empty(b, dtype=torch.int64, device=dev),      # totals
-               torch.empty((b, p), dtype=torch.uint8, device=dev)]  # states
-    packs = torch.empty((4, b, p), dtype=torch.int32, device=dev)
+    n_tiles = -(-p // lib.shafa_fsm32_tile_bytes())
+    scratch = [torch.empty((b, n_tiles, 4), dtype=torch.int64,
+                           device=dev),                       # functions
+               torch.empty((b, n_tiles), dtype=torch.int32,
+                           device=dev),                       # entry states
+               torch.empty(b * n_tiles + 1, dtype=torch.int64,
+                           device=dev)]       # look-back words, the ticket
+    vals = torch.empty((b, 2 * p), dtype=torch.int32, device=dev)
+    lens = torch.empty((b, 2 * p), dtype=torch.int32, device=dev)
     under = torch.empty(b, dtype=torch.int32, device=dev)
     _build.launches["fsm32"] += 1
     _build.check(lib.shafa_fsm32(
-        *args, b, p, *[t.data_ptr() for t in scratch], packs.data_ptr(),
-        under.data_ptr(), _build.stream(dev)), "fsm32")
-    return packs[0], packs[1], packs[2], packs[3], under.bool()
+        *args, b, p, *[t.data_ptr() for t in scratch], vals.data_ptr(),
+        lens.data_ptr(), under.data_ptr(), _build.stream(dev)), "fsm32")
+    return vals, lens, under.bool()
+
+
+def _rows_of_packs(vals, lens, under, payload_lens, out_p: int):
+    """Interleaved packs -> ((B, out_p) uint8 decoded rows, underrun):
+    K1's bits variant concatenates each row's 2 * payload_lens lanes."""
+    rows = emit_bits_rows(vals, lens, 2 * payload_lens,
+                          max(out_p, 512) // 4)
+    return rows[:, :out_p].contiguous(), under
 
 
 def emit_packs(val1, val2, len1, len2, payload_lens, stride_words: int):
-    """K6's packs -> (B, 4 * stride_words) uint8 decoded rows: lanes 2j and
-    2j+1 of a (B, 2P) batch carry byte j's two packs, which K1's bits
-    variant concatenates (shafa_tpu/kernels/decode.py:1444)."""
-    b, p = val1.shape
-    vals = torch.stack([val1, val2], dim=2).reshape(b, 2 * p)
-    lens = torch.stack([len1, len2], dim=2).reshape(b, 2 * p)
-    return emit_bits_rows(vals, lens, 2 * payload_lens, stride_words)
-
-
-def _rows_of_packs(val1, val2, len1, len2, under, payload_lens,
-                   out_p: int):
-    """K6's or K7's packs -> ((B, out_p) uint8 decoded rows, underrun)."""
-    rows = emit_packs(val1, val2, len1, len2, payload_lens,
-                      max(out_p, 512) // 4)
-    return rows[:, :out_p].contiguous(), under
+    """K7's four pack arrays -> (B, 4 * stride_words) uint8 decoded rows:
+    interleaved (interleave_packs), then K1's bits variant."""
+    return emit_bits_rows(*interleave_packs(val1, val2, len1, len2),
+                          2 * payload_lens, stride_words)
 
 
 def decode_batch32(payload, payload_lens, pc32, ls, ncodes, out_counts,
                    out_p: int):
     """(B, P) packed payloads -> ((B, out_p) uint8 decoded rows, underrun)
-    for codes of 17-32 bits: windows, K5, K6, K1. Tables from
-    rank_tables32. Row r's symbols are out[r, :out_counts[r]]; the bytes
-    after them are zero."""
+    for codes of 17-32 bits: windows, K5, K6, K1 (K6's packs go to K1 as
+    K6 lays them out). Tables from rank_tables32. Row r's symbols are
+    out[r, :out_counts[r]]; the bytes after them are zero."""
     planes = rank_planes32(windows32_bytes(payload), pc32, ls, ncodes)
-    packs = fsm32_packs(planes, payload_lens, out_counts)
+    vals, lens, under = fsm32_packs(planes, payload_lens, out_counts)
     del planes
-    return _rows_of_packs(*packs, payload_lens, out_p)
+    return _rows_of_packs(vals, lens, under, payload_lens, out_p)
 
 
 # -- the v4 chain: K7 ---------------------------------------------------------
@@ -503,6 +516,7 @@ def decode_batch_packs(payload, payload_lens, pc16, ls, out_counts,
     (_stage2_chain_ls then _emit_packs, decode.py:1389, :1444). Tables from
     rank_tables (codes <= 16 bits); returns what decode_batch returns."""
     planes = rank_planes(windows32_bytes(payload), pc16, ls)
-    packs = fsm_packs(planes, payload_lens, out_counts, s_states)
+    *packs, under = fsm_packs(planes, payload_lens, out_counts, s_states)
     del planes
-    return _rows_of_packs(*packs, payload_lens, out_p)
+    return _rows_of_packs(*interleave_packs(*packs), under, payload_lens,
+                          out_p)

@@ -71,7 +71,8 @@ STAGES = [
     (kdecode, "windows32_bytes"), (kdecode, "rank_planes"),
     (kdecode, "decode_rows"), (kdecode, "decode_batch32"),
     (kdecode, "rank_planes32"), (kdecode, "fsm32_packs"),
-    (kdecode, "emit_packs"), (kexpand, "rle_expand_prep"),
+    (kdecode, "emit_packs"), (kdecode, "emit_bits_rows"),
+    (kexpand, "rle_expand_prep"),
     (kexpand, "rle_expand_compact"),
 ]
 
@@ -234,7 +235,7 @@ def profiled_round_trip(path: str, data: bytes, trace_dir: str | None):
         print(f"traced {direction}: wall {wall:.4f} s, device busy "
               f"{busy:.4f} s (union of {', '.join(DEVICE_CATS)} intervals),"
               f" busy share {share}")
-        for ms, n, name in ops[:15]:
+        for ms, n, name in ops[:25]:
             print(f"  {ms:10.3f} ms x {n:5d}  {name[:100]}")
     with open(path, "rb") as fp:
         if fp.read() != data:

@@ -100,25 +100,93 @@ def test_rank_planes32_matches_pallas(batch):
         (planes & 255).astype(np.uint8).view(np.int8), batch["sym8"])
 
 
-def test_fsm32_packs_match_pallas(batch):
-    """K6's four pack arrays and underrun flag against
-    _stage2_chain_planes(..., 32): lanes within each row's payload equal
-    (the JAX kernel leaves the tiles past it unwritten); the port's lanes
-    past it are zero."""
-    b, p = batch["st"].shape
-    got = decode.fsm32_packs(batch["planes"],
-                             torch.from_numpy(batch["plens"]),
-                             torch.from_numpy(batch["counts"]))
+def _match_pallas(planes, ln8, sym8, plens, counts):
+    """K6's interleaved vals / lens and underrun flags against
+    _stage2_chain_planes(..., 32): lanes 0::2 hold val1 / len1 and lanes
+    1::2 val2 / len2 within each row's payload (the JAX kernel leaves the
+    tiles past it unwritten); the port's lanes past it are zero. Returns
+    the underrun flags."""
+    b = plens.size
+    p = planes.shape[1] // b
+    vals, lens, under = decode.fsm32_packs(planes, torch.from_numpy(plens),
+                                           torch.from_numpy(counts))
+    assert vals.shape == lens.shape == (b, 2 * p)
     want = jdec._stage2_chain_planes(
-        jnp.asarray(batch["ln8"]), jnp.asarray(batch["sym8"]), b, p,
-        jnp.asarray(batch["plens"]), jnp.asarray(batch["counts"]), 32,
-        interpret=True)
-    valid = np.arange(p)[None, :] < batch["plens"][:, None]
-    for g, w in zip(got[:4], want[:4]):
-        np.testing.assert_array_equal(g.numpy()[valid], np.asarray(w)[valid])
-        assert not g.numpy()[~valid].any()
-    np.testing.assert_array_equal(got[4].numpy(), np.asarray(want[4]))
-    assert got[4].tolist() == [False, True, False]
+        jnp.asarray(ln8), jnp.asarray(sym8), b, p, jnp.asarray(plens),
+        jnp.asarray(counts), 32, interpret=True)
+    valid = np.arange(p)[None, :] < plens[:, None]
+    for got, w1, w2 in ((vals, want[0], want[1]), (lens, want[2], want[3])):
+        got = got.numpy()
+        for g, w in ((got[:, 0::2], w1), (got[:, 1::2], w2)):
+            np.testing.assert_array_equal(g[valid], np.asarray(w)[valid])
+            assert not g[~valid].any()
+    np.testing.assert_array_equal(under.numpy(), np.asarray(want[4]))
+    return under.tolist()
+
+
+def test_fsm32_packs_match_pallas(batch):
+    """On the JAX kernel's planes (equal to the port's)."""
+    assert _match_pallas(batch["planes"], batch["ln8"], batch["sym8"],
+                         batch["plens"], batch["counts"]) == \
+        [False, True, False]
+
+
+def _edge_row(case, rng):
+    """(payload, count) of one row at a tile edge of K6 (2048 payload bytes
+    per tile) under the canonical 1-20-bit code: 1 byte, exactly one tile,
+    one tile and a byte, or a count that ends inside a byte's symbols.
+    Symbols mostly have short codes, so bytes hold several; a 20-bit code
+    every 400 symbols."""
+    table = _canonical(list(range(1, 20)) + [20, 20])
+    prob = 0.5 ** np.arange(1, 22)
+    syms = rng.choice(21, 40_000, p=prob / prob.sum()).astype(np.uint8)
+    syms[::400] = 20
+    if case == "one_byte":
+        syms = np.array([0, 1, 0, 0, 0], np.uint8)  # 0 10 0 0 0 + pad bit
+    lens = table.lens[0][syms].astype(np.int64)
+    payload = np.frombuffer(oracle.pack(syms, table.lens[0], table.vals[0]),
+                            np.uint8)
+    plen = {"one_byte": 1, "one_tile": 2048, "tile_and_a_byte": 2049,
+            "count_inside_a_byte": 3000}[case]
+    payload = payload[:plen]
+    starts = np.cumsum(lens) - lens
+    count = int(np.sum(starts + lens <= 8 * plen))
+    if case == "count_inside_a_byte":
+        # a byte where at least six symbols start: keep five of them
+        per_byte = np.bincount(starts[starts < 8 * plen] // 8)
+        j = int(np.flatnonzero(per_byte[1000:] >= 6)[0]) + 1000
+        count = int(np.sum(starts < 8 * j)) + 5
+    return table, payload, count
+
+
+@pytest.mark.parametrize("case", ["one_byte", "one_tile", "tile_and_a_byte",
+                                  "count_inside_a_byte"])
+def test_fsm32_packs_at_tile_edges_match_pallas(case):
+    """Rows at the edges of K6's 2048-byte tiles and of its count clip,
+    beside a row of 700 random payload bytes that underruns (any bytes
+    parse under a complete code), against the JAX kernel."""
+    rng = np.random.default_rng(2048)
+    table, payload, count = _edge_row(case, rng)
+    tables = _stack_tables([table, table])
+    st, plens = _stack_blocks(
+        [payload, rng.integers(0, 256, 700, dtype=np.uint8)], minimum=1024)
+    counts = np.array([count, 1 << 20], np.int32)
+    pc32, ls, ncodes = decode.rank_tables32(
+        decode.decode_tables_batch(tables.lens, tables.vals))
+    planes = decode.rank_planes32(
+        decode.windows32_bytes(torch.from_numpy(st)), torch.from_numpy(pc32),
+        torch.from_numpy(ls), torch.from_numpy(ncodes))
+    pn = planes.numpy()
+    assert _match_pallas(planes, ((pn >> 8) & 63).astype(np.int8),
+                         (pn & 255).astype(np.uint8).view(np.int8), plens,
+                         counts) == [False, True]
+    out, _ = decode.decode_batch32(
+        torch.from_numpy(st), torch.from_numpy(plens), torch.from_numpy(pc32),
+        torch.from_numpy(ls), torch.from_numpy(ncodes),
+        torch.from_numpy(counts), _bucket(count))
+    want = oracle.unpack(payload.tobytes(), table.row_strings(0), count)
+    np.testing.assert_array_equal(out[0, :count].numpy(), want)
+    assert not out[0, count:].numpy().any()
 
 
 def test_decode_batch32_matches_oracle(batch):

@@ -257,7 +257,8 @@ def test_rank32_and_fsm32(cuda, kind):
     want, got = _both(decode.fsm32_packs, planes_want.numpy(), plens, counts)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
-    under = want[4].tolist()
+    assert want[0].shape == want[1].shape == (len(blocks), 2 * st.shape[1])
+    under = want[2].tolist()
     assert under == ([False] * 3 if kind == "text" else [False, True, False])
     out_p = _bucket(int(counts.max()))
     dec, dec_under = decode.decode_batch32(
@@ -267,6 +268,47 @@ def test_rank32_and_fsm32(cuda, kind):
     for i, n in enumerate(counts):
         if not under[i]:
             assert np.array_equal(dec[i, :n].cpu().numpy(), blocks[i][:n])
+
+
+def test_fsm32_repeated_on_rows_of_many_lengths(cuda):
+    """K6 20 times in a row against its plain version (on the card) on a
+    (4, 4 MiB) batch of random payload bytes, which parse under a complete
+    1-32-bit code: a full row cut by its count, a row that ends on a tile
+    boundary and underruns, a row of 123,457 bytes, a row of 1 byte. A
+    look-back that reads a neighbour's count too early shows only in some
+    runs."""
+    rng = np.random.default_rng(20)
+    p = 4 << 20
+    tile = _build.library().shafa_fsm32_tile_bytes()
+    plens = np.array([p, 977 * tile, 123_457, 1], np.int32)
+    st = rng.integers(0, 256, (4, p), dtype=np.uint8)
+    st[3, 0] = 0  # eight 1-bit codes, two of them kept
+    wide = _canonical(list(range(1, 32)) + [32, 32])
+    pc32, ls, ncodes = (torch.from_numpy(a).cuda() for a in
+                        decode.rank_tables32(decode.decode_tables_batch(
+                            np.repeat(wide.lens, 4, 0),
+                            np.repeat(wide.vals, 4, 0))))
+    planes = decode.rank_planes32(
+        decode.windows32_bytes(torch.from_numpy(st).cuda()), pc32, ls, ncodes)
+    pl = torch.from_numpy(plens).cuda()
+    cnt = torch.tensor([10_000_000, 2 ** 31 - 1, 3 * 123_457, 2],
+                       dtype=torch.int32, device=cuda)
+    want = decode.fsm32_packs_plain(planes, pl, cnt)
+    assert want[2].tolist() == [False, True, False, False]
+    before = _build.launches["fsm32"]
+    for _ in range(20):
+        got = decode.fsm32_packs(planes, pl, cnt)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert _build.launches["fsm32"] == before + 20
+
+
+def test_fsm32_rejects_widths_not_a_multiple_of_8(cuda):
+    """K6 reads a thread's 8 lanes of a plane as two int4 loads."""
+    planes = torch.zeros((8, 1028), dtype=torch.int32, device=cuda)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        decode.fsm32_packs(planes, one, one)
 
 
 def test_backend_round_trip_17_to_32_bit_codes_on_the_card(cuda, tmp_path):
