@@ -5,7 +5,8 @@
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. the build of the CUDA kernels from shafa_tpu_torch/kernels/csrc/, and
-     K6's registers and spills per kernel as ``nvcc -Xptxas -v`` gave them;
+     K2's, K3's and K6's registers and spills per kernel as ``nvcc -Xptxas
+     -v`` gave them;
   3. every kernel of the paths against its plain PyTorch version on the
      card, on the paths' shapes, exact equality, both timed with CUDA
      events: K1-K4 and K7 on the 200 MB mixed corpus's batches (K7 on the
@@ -17,7 +18,11 @@ Phases, each fatal on failure:
      same;
   4. K5 and the whole 17-32-bit decode chain on a hand-built complete table
      with codes of 26-32 bits against the NumPy oracle (the case of the JAX
-     kernel's window fault);
+     kernel's window fault); K2 once and K3 20 times, at 8 and 16 states,
+     against their plain versions on rows at the edges of K3's look-back
+     and output words (a full row cut by its count, a row that ends on a
+     tile boundary and underruns past the row width, 123,457 bytes, 1
+     byte);
   5. two main paths through ``shafa_tpu_torch.cli.main([path, "-b", "m"])``
      and back from their .rle.shaf, each bit-exact, with the launch counts
      set to 0 before and read after: the 200,000,000-byte mixed corpus
@@ -200,8 +205,9 @@ def kernel_phase(data: bytes, dev) -> list[dict]:
     # the main path's decode batch: rows of the first 4 blocks
     drows = 4
     pst, plens = _stack_blocks(payloads[:drows], minimum=1024)
-    # per payload byte: K2/K5 read a 4-byte window and write 8 int32 plane
-    # entries; K3/K6/K7 read those 32 bytes, K6/K7 write 4 int32 packs
+    # per payload byte: K2 reads the byte and K5 a 4-byte window, each
+    # writes 8 int32 plane entries; K3/K6/K7 read those 32 bytes, K6/K7
+    # write 4 int32 packs
     payload = int(plens.sum())
     sub = codes_mod.CodeTables(tables.lens[:drows], tables.vals[:drows])
     if int(sub.lens.max()) > 16:
@@ -209,15 +215,15 @@ def kernel_phase(data: bytes, dev) -> list[dict]:
     dd = tables_to_device(sub, dev, decode=True)
     s_states = 8 if int(sub.lens.max()) <= 8 else 16
     out_p = _bucket(int(counts_np[:drows].max()))
-    w32 = decode.windows32_bytes(torch.from_numpy(pst).to(dev))
+    px = torch.from_numpy(pst).to(dev)
+    k2_tables = (dd.pc16, dd.ls, dd.lut12)
     r = compare("K2 rank",
-                lambda: decode.rank_planes(w32, dd.pc16, dd.ls),
-                lambda: decode.rank_planes_plain(w32, dd.pc16, dd.ls),
-                36 * payload + nbytes(dd.pc16, dd.ls),
+                lambda: decode.rank_planes(px, *k2_tables),
+                lambda: decode.rank_planes_plain(px, dd.pc16, dd.ls),
+                33 * payload + nbytes(*k2_tables),
                 lambda t: [t])
-    results.append(dict(name="rank", shape=list(w32.shape), **r))
-    ls8 = decode.rank_planes(w32, dd.pc16, dd.ls)
-    del w32
+    results.append(dict(name="rank", shape=list(px.shape), **r))
+    ls8 = decode.rank_planes(px, *k2_tables)
     pl = torch.from_numpy(plens).to(dev)
     cnt = torch.from_numpy(counts_np[:drows].copy()).to(dev)
     r = compare("K3 fsm_decode",
@@ -236,9 +242,8 @@ def kernel_phase(data: bytes, dev) -> list[dict]:
                 48 * payload + nbytes(pl, cnt) + drows, lambda t: list(t))
     results.append(dict(name="fsm_packs", shape=[drows, pst.shape[1]], **r))
     del ls8
-    rows, under_v4 = decode.decode_batch_packs(
-        torch.from_numpy(pst).to(dev), pl, dd.pc16, dd.ls, cnt, out_p,
-        s_states)
+    rows, under_v4 = decode.decode_batch_packs(px, pl, *k2_tables, cnt,
+                                               out_p, s_states)
     if not (torch.equal(rows, dec) and torch.equal(under_v4, under)):
         fail("K2 -> K7 -> K1 does not give K3's rows")
     del rows
@@ -324,27 +329,32 @@ def kernel32_phase(text: bytes, dev) -> list[dict]:
     return results
 
 
+def canonical_tables(lens_list, rows: int):
+    """CodeTables of rows copies of the complete canonical code with these
+    lengths (symbol s gets lens_list[s])."""
+    from shafa_tpu_torch import codes as codes_mod
+    lens = np.zeros((rows, 256), np.uint8)
+    vals = np.zeros((rows, 256), np.uint64)
+    code = prev = 0
+    for s, ln in enumerate(lens_list):
+        code <<= ln - prev
+        lens[:, s] = ln
+        vals[:, s] = np.uint64(code) << np.uint64(64 - ln)
+        code += 1
+        prev = ln
+    return codes_mod.CodeTables(lens, vals)
+
+
 def fault_phase(dev) -> None:
     """K5 and the whole 17-32-bit chain against oracle.unpack on a complete
     canonical table with codes of 26-32 bits, most of the symbols drawn
     from the long codes: the window at bit 8j+s needs byte j+4."""
     import torch
-    from shafa_tpu_torch import codes as codes_mod
     from shafa_tpu_torch import oracle
     from shafa_tpu_torch.device import _bucket, _stack_blocks
     from shafa_tpu_torch.kernels import decode
 
-    lens_list = list(range(1, 32)) + [32, 32]
-    lens = np.zeros((1, 256), np.uint8)
-    vals = np.zeros((1, 256), np.uint64)
-    code = prev = 0
-    for s, ln in enumerate(lens_list):
-        code <<= ln - prev
-        lens[0, s] = ln
-        vals[0, s] = np.uint64(code) << np.uint64(64 - ln)
-        code += 1
-        prev = ln
-    tables = codes_mod.CodeTables(lens, vals)
+    tables = canonical_tables(list(range(1, 32)) + [32, 32], 1)
     rng = np.random.default_rng(SEED)
     blk = rng.integers(25, 33, 300_000).astype(np.uint8)
     payload = oracle.pack(blk, tables.lens[0], tables.vals[0])
@@ -371,6 +381,55 @@ def fault_phase(dev) -> None:
     print(f"26-32-bit codes: K5 exact vs plain, K5 -> K6 -> K1 equals "
           f"oracle.unpack on {blk.size} symbols ({len(payload)} payload "
           "bytes)", flush=True)
+
+
+def edge_phase(dev) -> None:
+    """K2 once and K3 20 times against their plain versions on a (4, 4
+    MiB) batch of random payload bytes under a complete code (1-16 bits at
+    16 states, all 8 bits at 8): a full row cut by its count inside a tile,
+    a row that ends on a tile boundary and underruns (its symbols pass the
+    row width, where K3 drops them), a row of 123,457 bytes, a row of 1
+    byte. A look-back that reads a neighbour's count too early, or an edge
+    word two tiles share, shows only in some runs."""
+    import torch
+    from shafa_tpu_torch.device import tables_to_device
+    from shafa_tpu_torch.kernels import _build, decode
+
+    rng = np.random.default_rng(SEED + 6)
+    p = 4 << 20
+    tile = _build.library().shafa_fsm_decode_tile_bytes()
+    plens = np.array([p, 977 * tile, 123_457, 1], np.int32)
+    st = rng.integers(0, 256, (4, p), dtype=np.uint8)
+    st[np.arange(p)[None, :] >= plens[:, None]] = 0
+    st[3, 0] = 0  # 1-bit codes at 16 states, one 8-bit code at 8
+    for s_states, lens_list in ((16, list(range(1, 16)) + [16, 16]),
+                                (8, [8] * 256)):
+        dd = tables_to_device(canonical_tables(lens_list, 4), dev,
+                              decode=True)
+        px = torch.from_numpy(st).to(dev)
+        planes = decode.rank_planes(px, dd.pc16, dd.ls, dd.lut12)
+        if not torch.equal(planes,
+                           decode.rank_planes_plain(px, dd.pc16, dd.ls)):
+            fail(f"K2 differs from its plain version on the edge rows at "
+                 f"{s_states} states")
+        pl = torch.from_numpy(plens).to(dev)
+        cnt = torch.tensor([3_000_000, 2 ** 31 - 1, 100_000, s_states // 8],
+                           dtype=torch.int32, device=dev)
+        out_p = 4 << 20
+        want = decode.decode_rows_plain(planes, pl, cnt, s_states, out_p)
+        if want[1].tolist() != [False, True, False, False]:
+            fail(f"edge rows at {s_states} states: underrun flags "
+                 f"{want[1].tolist()}")
+        for _ in range(20):
+            got = decode.decode_rows(planes, pl, cnt, s_states, out_p)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                fail(f"K3 differs from its plain version on the edge rows "
+                     f"at {s_states} states")
+        del planes, want, got
+        torch.cuda.empty_cache()
+    print("edge rows (4, 4 MiB): K2 exact vs plain, K3 exact vs plain in 20 "
+          "runs each at 8 and 16 states", flush=True)
 
 
 def run_cli(argv: list[str], log) -> None:
@@ -510,12 +569,15 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds:.2f} s, one process per source)",
           flush=True)
-    k6 = _build.resources("fsm32_")
-    if not k6:
-        fail("no ptxas report of K6's kernels")
-    print("K6 registers and spills (nvcc -Xptxas -v): " + "; ".join(
-        f"{name} {regs} registers, {st} B spill stores, {ld} B spill loads"
-        for name, (regs, st, ld) in sorted(k6.items())), flush=True)
+    for label, prefix in (("K2", "rank_lut"), ("K3", "fsm16_"),
+                          ("K6", "fsm32_")):
+        res = _build.resources(prefix)
+        if not res:
+            fail(f"no ptxas report of {label}'s kernels")
+        print(f"{label} registers and spills (nvcc -Xptxas -v): " + "; ".join(
+            f"{name} {regs} registers, {st} B spill stores, {ld} B spill "
+            "loads" for name, (regs, st, ld) in sorted(res.items())),
+            flush=True)
 
     from shafa_tpu_torch.profile_main_path import (synthetic,
                                                    text_with_rare_bytes)
@@ -531,6 +593,7 @@ def main() -> int:
               f"plain {k['plain_ms']:.3f} ms, bound {k['bound_ms']:.3f} ms"
               f"{lib}, exact", flush=True)
     fault_phase(dev)
+    edge_phase(dev)
     torch.cuda.empty_cache()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")

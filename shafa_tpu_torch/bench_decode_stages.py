@@ -18,9 +18,10 @@ where SHAFA_TORCH_DEVICE=cpu runs the plain versions), and the rate over
 the bytes the original counts for that stage (packed payload, RLE stream
 or expanded bytes). The stages carry their counterparts' names:
 
-  windows32, rank_planes (K2), fsm_v4 (K7), emit_packs (K1 on K7's packs)
-      when the longest code has at most 16 bits;
-  fused v5 chain: windows, K2, K3, the route of _decode_fused_tpu;
+  rank_planes (K2, which reads the payload bytes: the original's
+      windows32 stage has no counterpart), fsm_v4 (K7), emit_packs (K1 on
+      K7's packs) when the longest code has at most 16 bits;
+  fused v5 chain: K2, K3, the route of _decode_fused_tpu;
   expand_sizes: the token scan of rle_expand_prep;
   expand (K4), which writes the compacted output: the counterpart of both
       expand_pages and expand_compact.
@@ -145,8 +146,8 @@ def main(argv: list[str] | None = None) -> int:
         s_states = 8 if max_len <= 8 else 16
 
         def decode():
-            return kdecode.decode_batch(py, pl, dt.pc16, dt.ls, cts, out_p,
-                                        s_states)
+            return kdecode.decode_batch(py, pl, dt.pc16, dt.ls, dt.lut12,
+                                        cts, out_p, s_states)
     else:
         pc32, ls32, ncodes = (torch.from_numpy(a).to(dev) for a in
                               kdecode.rank_tables32(kdecode.decode_tables_batch(
@@ -159,14 +160,10 @@ def main(argv: list[str] | None = None) -> int:
     _check("no underrun", not bool(under.any()), failed)
 
     if max_len <= 16:
-        timeit("windows32", lambda: kdecode.windows32_bytes(py),
+        k2_args = (py, dt.pc16, dt.ls, dt.lut12)
+        timeit("rank_planes (K2)", lambda: kdecode.rank_planes(*k2_args),
                packed_bytes, reps, dev)
-        w32 = kdecode.windows32_bytes(py)
-        timeit("rank_planes (K2)",
-               lambda: kdecode.rank_planes(w32, dt.pc16, dt.ls), packed_bytes,
-               reps, dev)
-        ls8 = kdecode.rank_planes(w32, dt.pc16, dt.ls)
-        del w32
+        ls8 = kdecode.rank_planes(*k2_args)
         timeit(f"fsm_v4 S={s_states} (K7)",
                lambda: kdecode.fsm_packs(ls8, pl, cts, s_states),
                packed_bytes, reps, dev)

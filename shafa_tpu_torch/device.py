@@ -33,6 +33,7 @@ from .kernels import histogram as khist
 from .kernels import ops as kops
 from .kernels import pack as kpack
 from .kernels import rle as krle
+from .pipeline import host_unpack
 
 #: Max elements per (B, P) batch (shafa_tpu/device.py:48).
 MAX_BATCH_ELEMS = 1 << 26
@@ -133,11 +134,13 @@ class DeviceTables:
 
     lut_len / lut_val feed K1's LUT variant: code lengths clipped to 32 and
     the u32 bits of the left-aligned codes, (n, 256) int32 each. pc16 / ls
-    feed K2 (kernels/decode.rank_tables) and are built only on request."""
+    and lut12 feed K2 (kernels/decode.rank_tables, rank_lut12) and are
+    built only on request."""
     lut_len: torch.Tensor
     lut_val: torch.Tensor
     pc16: torch.Tensor | None = None
     ls: torch.Tensor | None = None
+    lut12: torch.Tensor | None = None
 
 
 def tables_to_device(tables: codes_mod.CodeTables, device,
@@ -153,6 +156,7 @@ def tables_to_device(tables: codes_mod.CodeTables, device,
             kdecode.decode_tables_batch(tables.lens, tables.vals))
         out.pc16 = torch.from_numpy(pc16).to(device)
         out.ls = torch.from_numpy(ls).to(device)
+        out.lut12 = torch.from_numpy(kdecode.rank_lut12(pc16, ls)).to(device)
     return out
 
 
@@ -402,8 +406,8 @@ class TorchBackend:
         for i in range(n_total):
             if i in tables.overflow or maxlen[i] > 32 or n_codes[i] == 0:
                 TorchBackend.host_decoded_blocks += 1
-                dec = oracle.unpack(payloads[i], tables.row_strings(i),
-                                    out_counts[i])
+                dec = host_unpack(payloads[i], tables.row_strings(i),
+                                  out_counts[i])
                 results[i] = oracle.rle_expand(dec) if expand else dec
             elif not complete[i]:  # foreign .cod with gaps: trie semantics
                 TorchBackend.host_decoded_blocks += 1
@@ -425,8 +429,8 @@ class TorchBackend:
         """One batch of blocks whose codes have at most 16 bits: K2, K3."""
         dt = tables_to_device(sub, self.device, decode=True)
         s_states = 8 if int(sub.lens.max()) <= 8 else 16
-        return kdecode.decode_batch(stacked, plens, dt.pc16, dt.ls, counts,
-                                    out_p, s_states)
+        return kdecode.decode_batch(stacked, plens, dt.pc16, dt.ls, dt.lut12,
+                                    counts, out_p, s_states)
 
     def _decode_batch32(self, sub, stacked, plens, counts, out_p):
         """One batch of blocks whose codes have 17-32 bits: K5, K6, K1."""

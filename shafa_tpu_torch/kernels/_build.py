@@ -42,10 +42,11 @@ _SIGNATURES = {
     "shafa_emit_tile_lanes": [],
     "shafa_emit": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _L, _P, _P, _P, _L,
                    _P],
-    "shafa_rank_planes": [_P, _P, _P, _I, _L, _P, _P],
-    "shafa_fsm_tile_bytes": [],
-    "shafa_fsm_decode": [_P, _P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P,
-                         _L, _P, _P],
+    "shafa_rank_lut_entries": [],
+    "shafa_rank_planes": [_P, _P, _P, _P, _I, _L, _P, _P],
+    "shafa_fsm_decode_tile_bytes": [],
+    "shafa_fsm_decode": [_P, _P, _P, _I, _I, _L, _P, _P, _P, _P, _L, _P, _P],
+    "shafa_fsm_packs_tile_bytes": [],
     "shafa_fsm_packs": [_P, _P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P],
     "shafa_expand": [_P, _P, _P, _I, _L, _P, _L, _P],
@@ -123,17 +124,18 @@ _LENGTH = re.compile(r"\d+")
 
 
 def _kernel_name(mangled: str) -> str:
-    """A kernel's name from its mangled one: the first length-prefixed
-    name after _Z / _ZN that is not an anonymous namespace
-    (_GLOBAL__N_...)."""
+    """A kernel's name from its mangled one: the last length-prefixed name
+    of a nested name (_ZN ... E, after any namespaces, anonymous ones
+    included), or the name after _Z."""
     m = re.match(r"_ZN?", mangled)
     pos = m.end() if m else 0
+    name = mangled
     while m := _LENGTH.match(mangled, pos):
         pos = m.end() + int(m.group())
         name = mangled[m.end():pos]
-        if not name.startswith("_GLOBAL__N"):
-            return name
-    return mangled
+        if not mangled.startswith("_ZN"):
+            break
+    return name
 
 
 def resources(prefix: str) -> dict[str, tuple[int, int, int]]:

@@ -5,22 +5,23 @@ complete and its codes in rank order are lexicographically increasing, so
 the code at a bit position is the one with the largest left-aligned value
 <= the window there (codes.py).
 
-Codes of at most 16 bits (_decode_fused_tpu, decode.py:1466): big-endian
-byte windows -> the code at every bit position (K2, csrc/rank.cu) -> the
-boundary state machine, which writes the decoded bytes into each row and
-flags underrun (K3, csrc/fsm_decode.cu).
+Codes of at most 16 bits (_decode_fused_tpu, decode.py:1466): the payload
+bytes -> the code at every bit position, found with one lookup in a table
+indexed by the window's top 12 bits (K2, csrc/rank.cu) -> the boundary
+state machine, which writes the decoded bytes into each row and flags
+underrun (K3, csrc/fsm_decode.cu).
 
-Codes of 17-32 bits (_decode_fused32_tpu, decode.py:580): windows -> the
-code at every bit position on full 32-bit windows (K5, csrc/rank32.cu) ->
-the 32-state boundary machine, which replays each byte's symbols into two
-packs clipped at the row's count, interleaved as (B, 2P) lanes (K6,
-csrc/fsm32.cu) -> K1's bits emission concatenates them into the decoded
-rows.
+Codes of 17-32 bits (_decode_fused32_tpu, decode.py:580): big-endian byte
+windows -> the code at every bit position on full 32-bit windows (K5,
+csrc/rank32.cu) -> the 32-state boundary machine, which replays each
+byte's symbols into two packs clipped at the row's count, interleaved as
+(B, 2P) lanes (K6, csrc/fsm32.cu) -> K1's bits emission concatenates them
+into the decoded rows.
 
 The v4 chain, codes of at most 16 bits, which only the decode-stage
-benchmark runs (bench_decode_stages.py:141-183): windows -> K2 -> the 8- or
-16-state machine writing four pack arrays (K7, csrc/fsm_decode.cu,
-decode.py:1389) -> interleave_packs -> K1 (emit_packs, decode_batch_packs).
+benchmark runs (bench_decode_stages.py:141-183): K2 -> the 8- or 16-state
+machine writing four pack arrays (K7, csrc/fsm_decode.cu, decode.py:1389)
+-> interleave_packs -> K1 (emit_packs, decode_batch_packs).
 """
 
 from __future__ import annotations
@@ -33,6 +34,9 @@ from .emit import emit_bits_rows, to_i32
 
 #: rank_tables' prefix past the row's codes: above every 16-bit window
 NO_CODE = 0x10000
+
+#: rank_lut12's flag of an entry that holds a rank range
+LUT_RANGE = 0x8000
 
 
 def decode_tables_batch(lens: np.ndarray, vals: np.ndarray) -> dict:
@@ -129,6 +133,39 @@ def rank_tables32(tab: dict):
             np.asarray(tab["n_codes"]).astype(np.int32))
 
 
+def rank_lut12(pc16: np.ndarray, ls: np.ndarray) -> np.ndarray:
+    """K2's tables (rank_tables) -> (n, 4096) int16: the code of each
+    12-bit window prefix.
+
+    Entry t covers the 16-bit windows 16t..16t+15. Where one rank r (the
+    largest with pc16[r] <= the window) holds for all 16, the entry is
+    ls[r] (0 where no code lies below: an incomplete table); every code of
+    at most 12 bits resolves so. Otherwise it is LUT_RANGE | depth << 8 |
+    lo: the rank lies in lo..hi (lo = the rank at 16t, or 0 if there is
+    none, hi the rank at 16t + 15), hi - lo < 2^depth, and K2 finds it by a
+    depth-step binary search over pc16 from lo (csrc/rank.cu::search).
+    Nothing is assumed of the code set, so a prefix shared by a short code
+    and longer ones is a range too.
+    """
+    pc = np.asarray(pc16).astype(np.int64)
+    n = pc.shape[0]
+    valid = pc < NO_CODE
+    slot = (np.arange(n)[:, None] * 4096 + (pc >> 4))[valid]
+    hist = np.bincount(slot, minlength=n * 4096).reshape(n, 4096)
+    at_lo = np.bincount(slot[(pc[valid] & 15) == 0],
+                        minlength=n * 4096).reshape(n, 4096)
+    le_hi = np.cumsum(hist, axis=1)     # codes with pc16 <= 16t + 15
+    le_lo = le_hi - hist + at_lo        # codes with pc16 <= 16t
+    r_lo, r_hi = le_lo - 1, le_hi - 1
+    code = np.take_along_axis(np.asarray(ls).astype(np.int64),
+                              np.maximum(r_hi, 0), axis=1)
+    lo = np.maximum(r_lo, 0)
+    depth = sum(((r_hi - lo) >> k) > 0 for k in range(8))  # bit length
+    ent = np.where(r_lo == r_hi, np.where(r_hi >= 0, code, 0),
+                   LUT_RANGE | (depth << 8) | lo)
+    return ent.astype(np.uint16).view(np.int16)
+
+
 def windows32_bytes(payload: torch.Tensor) -> torch.Tensor:
     """(B, P) uint8 -> (B, P) int32: bytes j..j+3 big-endian, zero past the
     row (decode.py:354)."""
@@ -140,35 +177,49 @@ def windows32_bytes(payload: torch.Tensor) -> torch.Tensor:
     return to_i32(w)
 
 
-def rank_planes_plain(w32, pc16, ls):
-    """Plain version of rank_planes: searchsorted per bit offset."""
-    b, p = w32.shape
-    w = w32.to(torch.int64) & 0xFFFFFFFF
+def rank_planes_plain(payload, pc16, ls):
+    """Plain version of rank_planes: the windows from the bytes, then
+    searchsorted per bit offset (no 12-bit table)."""
+    b, p = payload.shape
+    by = torch.zeros((b, p + 2), dtype=torch.int64, device=payload.device)
+    by[:, :p] = payload
+    v24 = (by[:, :p] << 16) | (by[:, 1:p + 1] << 8) | by[:, 2:p + 2]
     pc = pc16.to(torch.int64).contiguous()
     table = ls.to(torch.int64)
     planes = []
     for s in range(8):
-        w16 = ((w << s) & 0xFFFFFFFF) >> 16
+        w16 = (v24 >> (8 - s)) & 0xFFFF
         r = torch.searchsorted(pc, w16, right=True) - 1
         v = torch.gather(table, 1, r.clamp(min=0))
         planes.append(torch.where(r >= 0, v, 0))
     return torch.stack(planes).reshape(8, b * p).to(torch.int32)
 
 
-def rank_planes(w32: torch.Tensor, pc16: torch.Tensor,
-                ls: torch.Tensor) -> torch.Tensor:
-    """(B, P) int32 byte windows + K2 tables -> (8, B*P) int32 planes:
-    plane s, lane r*P + j = sym | len << 8 of the code at bit 8j+s of row r
-    (0 where no code fits, which a complete table never gives)."""
-    if w32.device.type == "cpu":
-        return rank_planes_plain(w32, pc16, ls)
-    b, p = w32.shape
-    dev = w32.device
-    args = [_build.ptr(w32, torch.int32, (b, p), dev),
+def rank_planes(payload: torch.Tensor, pc16: torch.Tensor, ls: torch.Tensor,
+                lut12: torch.Tensor) -> torch.Tensor:
+    """(B, P) uint8 payloads + K2 tables (rank_tables, rank_lut12) ->
+    (8, B*P) int32 planes: plane s, lane r*P + j = sym | len << 8 of the
+    code at bit 8j+s of row r, bytes past P read as zero (0 where no code
+    fits, which a complete table never gives). On the card P must be a
+    multiple of 16 (the decode batches' widths are powers of two >= 1024).
+    """
+    if payload.device.type == "cpu":
+        return rank_planes_plain(payload, pc16, ls)
+    b, p = payload.shape
+    if p % 16:
+        raise ValueError(f"rank_planes: payload width {p} is not a multiple "
+                         "of 16")
+    dev = payload.device
+    lib = _build.library()
+    args = [_build.ptr(payload, torch.uint8, (b, p), dev),
+            _build.ptr(lut12, torch.int16,
+                       (b, lib.shafa_rank_lut_entries()), dev),
             _build.ptr(pc16, torch.int32, (b, 256), dev),
             _build.ptr(ls, torch.int32, (b, 256), dev)]
+    if args[0] % 16 or args[1] % 16:
+        raise ValueError("rank_planes: payload and table need 16-byte "
+                         "alignment")
     out = torch.empty((8, b * p), dtype=torch.int32, device=dev)
-    lib = _build.library()
     _build.launches["rank"] += 1
     _build.check(lib.shafa_rank_planes(*args, b, p, out.data_ptr(),
                                        _build.stream(dev)), "rank")
@@ -222,9 +273,9 @@ def decode_rows_plain(ls8, payload_lens, out_counts, s_states: int,
     return out.view(b, out_p), under
 
 
-def _fsm_scratch(lib, b: int, p: int, dev) -> list[torch.Tensor]:
-    """Scratch of K3 and K7: per tile (B, n_tiles), per row, per byte."""
-    tiles = (b, -(-p // lib.shafa_fsm_tile_bytes()))
+def _fsm_packs_scratch(lib, b: int, p: int, dev) -> list[torch.Tensor]:
+    """Scratch of K7: per tile (B, n_tiles), per row, per byte."""
+    tiles = (b, -(-p // lib.shafa_fsm_packs_tile_bytes()))
     return [torch.empty(tiles, dtype=torch.int64, device=dev),  # u64 fns
             torch.empty(tiles, dtype=torch.int32, device=dev),  # entries
             torch.empty(tiles, dtype=torch.int64, device=dev),  # counts
@@ -240,7 +291,8 @@ def decode_rows(ls8: torch.Tensor, payload_lens: torch.Tensor,
     payload_lens, out_counts: (B,) int32. s_states (8 or 16) >= the batch's
     longest code. Row r's symbols are out[r, :out_counts[r]] (out_p >= every
     count; symbols past out_p are dropped); bytes past them are zero.
-    Underrun: the payload holds fewer symbols than the count.
+    Underrun: the payload holds fewer symbols than the count. On the card
+    P must be a multiple of 8 and out_p of 4.
     """
     if s_states not in (8, 16):
         raise ValueError("s_states must be 8 or 16")
@@ -249,27 +301,36 @@ def decode_rows(ls8: torch.Tensor, payload_lens: torch.Tensor,
                                  out_p)
     b = payload_lens.shape[0]
     p = ls8.shape[1] // b
+    if p % 8 or out_p % 4:
+        raise ValueError(f"decode_rows: payload width {p} is not a multiple "
+                         f"of 8 or row width {out_p} not one of 4")
     dev = ls8.device
     args = [_build.ptr(ls8, torch.int32, (8, b * p), dev),
             _build.ptr(payload_lens, torch.int32, (b,), dev),
             _build.ptr(out_counts, torch.int32, (b,), dev)]
     lib = _build.library()
-    scratch = _fsm_scratch(lib, b, p, dev)
+    n_tiles = -(-p // lib.shafa_fsm_decode_tile_bytes())
+    scratch = [torch.empty((b, n_tiles), dtype=torch.int64,
+                           device=dev),                        # functions
+               torch.empty((b, n_tiles), dtype=torch.int32,
+                           device=dev),                        # entry states
+               torch.empty(b * n_tiles + 1, dtype=torch.int64,
+                           device=dev)]        # look-back words, the ticket
     out = torch.zeros((b, out_p), dtype=torch.uint8, device=dev)
     under = torch.empty(b, dtype=torch.int32, device=dev)
     _build.launches["fsm_decode"] += 1
     _build.check(lib.shafa_fsm_decode(
-        *args, s_states, b, p,
-        *[t.data_ptr() for t in scratch], out.data_ptr(), out_p,
-        under.data_ptr(), _build.stream(dev)), "fsm_decode")
+        *args, s_states, b, p, *[t.data_ptr() for t in scratch],
+        out.data_ptr(), out_p, under.data_ptr(), _build.stream(dev)),
+        "fsm_decode")
     return out, under.bool()
 
 
-def decode_batch(payload, payload_lens, pc16, ls, out_counts, out_p: int,
-                 s_states: int):
+def decode_batch(payload, payload_lens, pc16, ls, lut12, out_counts,
+                 out_p: int, s_states: int):
     """(B, P) packed payloads -> ((B, out_p) uint8 decoded rows, underrun):
-    windows, K2, K3. Tables from rank_tables (codes <= 16 bits)."""
-    ls8 = rank_planes(windows32_bytes(payload), pc16, ls)
+    K2, K3. Tables from rank_tables and rank_lut12 (codes <= 16 bits)."""
+    ls8 = rank_planes(payload, pc16, ls, lut12)
     return decode_rows(ls8, payload_lens, out_counts, s_states, out_p)
 
 
@@ -500,7 +561,7 @@ def fsm_packs(planes: torch.Tensor, payload_lens: torch.Tensor,
             _build.ptr(payload_lens, torch.int32, (b,), dev),
             _build.ptr(out_counts, torch.int32, (b,), dev)]
     lib = _build.library()
-    scratch = _fsm_scratch(lib, b, p, dev)
+    scratch = _fsm_packs_scratch(lib, b, p, dev)
     packs = torch.empty((4, b, p), dtype=torch.int32, device=dev)
     under = torch.empty(b, dtype=torch.int32, device=dev)
     _build.launches["fsm_packs"] += 1
@@ -510,12 +571,12 @@ def fsm_packs(planes: torch.Tensor, payload_lens: torch.Tensor,
     return packs[0], packs[1], packs[2], packs[3], under.bool()
 
 
-def decode_batch_packs(payload, payload_lens, pc16, ls, out_counts,
+def decode_batch_packs(payload, payload_lens, pc16, ls, lut12, out_counts,
                        out_p: int, s_states: int):
-    """decode_batch through the v4 chain: windows, K2, K7, K1
-    (_stage2_chain_ls then _emit_packs, decode.py:1389, :1444). Tables from
-    rank_tables (codes <= 16 bits); returns what decode_batch returns."""
-    planes = rank_planes(windows32_bytes(payload), pc16, ls)
+    """decode_batch through the v4 chain: K2, K7, K1 (_stage2_chain_ls then
+    _emit_packs, decode.py:1389, :1444). Tables from rank_tables and
+    rank_lut12 (codes <= 16 bits); returns what decode_batch returns."""
+    planes = rank_planes(payload, pc16, ls, lut12)
     *packs, under = fsm_packs(planes, payload_lens, out_counts, s_states)
     del planes
     return _rows_of_packs(*interleave_packs(*packs), under, payload_lens,

@@ -190,6 +190,16 @@ class CheckedBackend:
             want)
 
 
+def host_unpack(payload, code_strings, out_count) -> np.ndarray:
+    """oracle.unpack, its ValueError on a bad archive (no codes, a stream
+    exhausted early) raised as FileUnrecognizableError, so that the CLI
+    ends with "File not recognized" as on the kernel route."""
+    try:
+        return oracle.unpack(payload, code_strings, out_count)
+    except ValueError as e:
+        raise FileUnrecognizableError(str(e)) from e
+
+
 class NumpyBackend:
     """Host backend / differential baseline; exact per oracle.py."""
 
@@ -210,7 +220,7 @@ class NumpyBackend:
         return out
 
     def unpack(self, payloads, tables, out_counts):
-        return [oracle.unpack(p, tables.row_strings(i), n)
+        return [host_unpack(p, tables.row_strings(i), n)
                 for i, (p, n) in enumerate(zip(payloads, out_counts))]
 
     def rle_expand(self, blocks):

@@ -52,6 +52,8 @@ from .kernels import pack as kpack
 from .kernels import rle as krle
 
 #: (owner, attribute) of every function the stage-timed run times.
+#: windows32_bytes runs only on the 17-32-bit route (K5 reads windows; K2
+#: reads the payload bytes).
 STAGES = [
     (pipeline, "_open_read"), (pipeline, "_read_blocks"),
     (formats, "write_freq_arrays"), (formats, "write_cod_tables"),

@@ -34,3 +34,16 @@ def test_resources_reads_the_ptxas_report(tmp_path, monkeypatch, anonymous):
                                           "fsm32_tile_packs": (76, 8, 12)}
     assert set(_build.resources("fsm")) == {"fsm32_tile_fn",
                                             "fsm32_tile_packs", "fsm_tile_fn"}
+
+
+@pytest.mark.parametrize("mangled,name", [
+    ("_ZN12_GLOBAL__N_12k313fsm16_tile_fnENS_4ArgsEPy", "fsm16_tile_fn"),
+    ("_ZN12_GLOBAL__N_115rank_lut_planesEPKhPKsPKiS5_xxPi",
+     "rank_lut_planes"),
+    ("_Z12plain_kerneli", "plain_kernel"),
+])
+def test_kernel_name_of_a_nested_or_plain_mangled_name(mangled, name):
+    """A kernel inside a namespace nested in the anonymous one (K3's and
+    K7's in fsm_decode.cu) keeps its own name, the last of the nested
+    name."""
+    assert _build._kernel_name(mangled) == name

@@ -112,21 +112,102 @@ def test_rank_tables_raise_value_error_over_16_bits():
 
 
 def test_windows_and_rank_planes_match_pallas():
+    """K2 takes the payload bytes; the JAX rank kernel takes the windows
+    its caller builds from them. The rows' payloads reach the end of the
+    batch width, so the last windows read the zeros past it."""
     rng = np.random.default_rng(3)
     blocks = _blocks("mixed_rows", rng)
     tables, payloads = _archive(blocks)
-    st, _ = _stack_blocks([np.frombuffer(p, np.uint8) for p in payloads],
-                          minimum=1024)
+    st, plens = _stack_blocks([np.frombuffer(p, np.uint8) for p in payloads],
+                              minimum=1024)
+    st[0, plens[0]:] = rng.integers(0, 256, st.shape[1] - plens[0])
     w32 = decode.windows32_bytes(torch.from_numpy(st))
     np.testing.assert_array_equal(w32.numpy(),
                                   np.asarray(jdec.windows32_bytes(st)))
     tab = decode.decode_tables_batch(tables.lens, tables.vals)
     pc16, ls = decode.rank_tables(tab)
-    got = decode.rank_planes(w32, torch.from_numpy(pc16),
-                             torch.from_numpy(ls))
-    want = jdec.rank_planes_pallas(jnp.asarray(w32.numpy()),
+    got = decode.rank_planes(torch.from_numpy(st), torch.from_numpy(pc16),
+                             torch.from_numpy(ls),
+                             torch.from_numpy(decode.rank_lut12(pc16, ls)))
+    want = jdec.rank_planes_pallas(jdec.windows32_bytes(st),
                                    *jdec.rank_tables(tab), interpret=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _lut_lookup(lut, pc16, ls, w16):
+    """K2's lookup of one row's 16-bit windows (csrc/rank.cu), in numpy:
+    the entry of the window's top 12 bits, or the binary search that a
+    range entry asks for. lut (4096,) int16, pc16 and ls (256,)."""
+    w16 = np.asarray(w16).astype(np.int64)
+    pc = np.asarray(pc16).astype(np.int64)
+    e = np.asarray(lut)[w16 >> 4].astype(np.int64)
+    lo = e & 255
+    r = lo.copy()
+    step = (1 << ((e >> 8) & 15)) >> 1
+    while step.any():
+        nxt = r + step
+        take = (step > 0) & (nxt < 256) & (pc[np.minimum(nxt, 255)] <= w16)
+        r = np.where(take, nxt, r)
+        step >>= 1
+    found = np.where(pc[lo] <= w16, np.asarray(ls).astype(np.int64)[r], 0)
+    return np.where(e < 0, found, e)
+
+
+def _lut_case(kind):
+    """(pc16, ls) rows of K2's tables: from a complete canonical code, or
+    written out where no complete prefix code gives them."""
+    if kind == "all_8bit":
+        t = _canonical([8] * 256)
+    elif kind == "skewed_9_to_16_bits":
+        t, _ = _archive(_blocks(kind, np.random.default_rng(6)))
+    elif kind == "lengths_12_and_13":
+        t = _canonical(list(range(1, 13)) + [13, 13])
+    elif kind == "single_symbol":  # the code "0" (docs/DEVIATIONS.md §1)
+        hist = np.zeros((1, 256), np.int64)
+        hist[0, 65] = 9
+        t = codes_mod.build_code_tables(hist)
+    if kind in ("shared_12_bit_prefix", "incomplete"):
+        # a 12-bit code and two longer ones under its prefix (not prefix
+        # free), then a gap; or codes starting above window 0
+        pcs = ([0x0000, 0x0010, 0x0018, 0x001C, 0x8000]
+               if kind == "shared_12_bit_prefix" else [0x0300, 0x0301, 0xF000])
+        lens = [1, 12, 13, 14, 1] if kind == "shared_12_bit_prefix" \
+            else [8, 16, 4]
+        pc16 = np.full((1, 256), decode.NO_CODE, np.int32)
+        ls = np.zeros((1, 256), np.int32)
+        pc16[0, :len(pcs)] = pcs
+        ls[0, :len(pcs)] = [(s + 1) | (ln << 8) for s, ln in enumerate(lens)]
+        return pc16, ls, max(lens)
+    pc16, ls = decode.rank_tables(decode.decode_tables_batch(t.lens, t.vals))
+    return pc16, ls, int(t.lens.max())
+
+
+@pytest.mark.parametrize("kind", ["all_8bit", "skewed_9_to_16_bits",
+                                  "lengths_12_and_13", "single_symbol",
+                                  "shared_12_bit_prefix", "incomplete"])
+def test_rank_lut12_gives_searchsorted_on_every_window(kind):
+    """K2's lookup (the 12-bit table, and the range search where its entry
+    asks for one) against searchsorted over pc16, on all 65,536 windows."""
+    pc16, ls, maxlen = _lut_case(kind)
+    assert maxlen == {"all_8bit": 8, "skewed_9_to_16_bits": 13,
+                      "lengths_12_and_13": 13, "single_symbol": 1,
+                      "shared_12_bit_prefix": 14, "incomplete": 16}[kind]
+    lut = decode.rank_lut12(pc16, ls)
+    assert lut.shape == (1, 4096) and lut.dtype == np.int16
+    ranged = lut[0] < 0
+    assert ranged.any() == (maxlen > 12)
+    w = np.arange(1 << 16)
+    r = np.searchsorted(pc16[0], w, side="right") - 1
+    want = np.where(r >= 0, ls[0][np.maximum(r, 0)], 0)
+    np.testing.assert_array_equal(
+        _lut_lookup(lut[0], pc16[0], ls[0], w), want)
+    if kind not in ("shared_12_bit_prefix", "incomplete"):
+        # in a complete prefix code, a code of at most 12 bits fills its
+        # windows' entries itself
+        n = int((pc16[0] < decode.NO_CODE).sum())
+        short = (ls[0, :n] >> 8) <= 12
+        np.testing.assert_array_equal(lut[0, pc16[0, :n][short] >> 4],
+                                      ls[0, :n][short])
 
 
 def _port_decode(payloads, tables, counts):
@@ -136,8 +217,8 @@ def _port_decode(payloads, tables, counts):
     ml = int(tables.lens.max())
     out, under = decode.decode_batch(
         torch.from_numpy(st), torch.from_numpy(plens), dt.pc16, dt.ls,
-        torch.tensor(counts, dtype=torch.int32), _bucket(int(max(counts))),
-        8 if ml <= 8 else 16)
+        dt.lut12, torch.tensor(counts, dtype=torch.int32),
+        _bucket(int(max(counts))), 8 if ml <= 8 else 16)
     return out.numpy(), under.numpy(), st, plens
 
 

@@ -83,10 +83,10 @@ def batch(request):
         s_states, np.random.default_rng(s_states))
     b, p = st.shape
     dt = tables_to_device(tables, "cpu", decode=True)
-    w32 = decode.windows32_bytes(torch.from_numpy(st))
-    planes = decode.rank_planes(w32, dt.pc16, dt.ls)
+    planes = decode.rank_planes(torch.from_numpy(st), dt.pc16, dt.ls,
+                                dt.lut12)
     jplanes = jdec.rank_planes_pallas(
-        jnp.asarray(w32.numpy()), *jdec.rank_tables(
+        jdec.windows32_bytes(st), *jdec.rank_tables(
             jdec.decode_tables_batch(tables.lens, tables.vals)),
         interpret=True)
     want = jdec._stage2_chain_ls(jplanes, b, p, jnp.asarray(plens),
@@ -120,7 +120,7 @@ def test_fsm_packs_match_pallas(batch):
 
 def test_decode_batch_packs_matches_oracle_and_k3(batch):
     args = (torch.from_numpy(batch["st"]), torch.from_numpy(batch["plens"]),
-            batch["dt"].pc16, batch["dt"].ls,
+            batch["dt"].pc16, batch["dt"].ls, batch["dt"].lut12,
             torch.from_numpy(batch["counts"]),
             _bucket(int(batch["counts"].max())), batch["s_states"])
     out, under = decode.decode_batch_packs(*args)
@@ -186,7 +186,7 @@ def test_bench_decode_stages_runs_on_the_cpu():
     lines = r.stdout.strip().splitlines()
     assert json.loads(lines[-1]) == [0, []]
     stages = [ln.split("  ")[0] for ln in lines if " ms " in ln]
-    assert stages == ["windows32", "rank_planes (K2)", "fsm_v4 S=16 (K7)",
+    assert stages == ["rank_planes (K2)", "fsm_v4 S=16 (K7)",
                       "fsm32 S=32 (K6)", "emit_packs (K1)",
                       "fused v5 chain (K2, K3)", "expand_sizes",
                       "expand (K4)"]

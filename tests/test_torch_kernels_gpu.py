@@ -144,9 +144,8 @@ def _decode16_case(kind):
 @pytest.mark.parametrize("kind", ["all_8bit", "skewed", "ragged_underrun"])
 def test_rank_and_fsm_decode(cuda, kind):
     blocks, counts, st, plens, dt, s_states = _decode16_case(kind)
-    w32 = decode.windows32_bytes(torch.from_numpy(st)).numpy()
-    ls_want, ls_got = _both(decode.rank_planes, w32, dt.pc16.numpy(),
-                            dt.ls.numpy())
+    ls_want, ls_got = _both(decode.rank_planes, st, dt.pc16.numpy(),
+                            dt.ls.numpy(), dt.lut12.numpy())
     assert torch.equal(ls_got.cpu(), ls_want)
     out_p = _bucket(int(counts.max()))
     want, got = _both(
@@ -169,14 +168,15 @@ def test_fsm_packs(cuda, kind):
     v4 chain (K2, K7, K1) against the K2 -> K3 route on the card."""
     blocks, counts, st, plens, dt, s_states = _decode16_case(kind)
     assert s_states == (8 if kind == "all_8bit" else 16)
-    ls8 = decode.rank_planes(decode.windows32_bytes(torch.from_numpy(st)),
-                             dt.pc16, dt.ls).numpy()
+    ls8 = decode.rank_planes(torch.from_numpy(st), dt.pc16, dt.ls,
+                             dt.lut12).numpy()
     want, got = _both(lambda *a: decode.fsm_packs(*a, s_states), ls8, plens,
                       counts)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     args = [torch.from_numpy(a).cuda() for a in (st, plens)] + [
-        dt.pc16.cuda(), dt.ls.cuda(), torch.from_numpy(counts).cuda(),
+        dt.pc16.cuda(), dt.ls.cuda(), dt.lut12.cuda(),
+        torch.from_numpy(counts).cuda(),
         _bucket(int(counts.max())), s_states]
     before = _build.launches["fsm_packs"]
     rows, under = decode.decode_batch_packs(*args)
@@ -301,6 +301,84 @@ def test_fsm32_repeated_on_rows_of_many_lengths(cuda):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert _build.launches["fsm32"] == before + 20
+
+
+def _complete_rows(lens_list, n_rows):
+    """CodeTables of n_rows copies of a complete canonical code."""
+    one = _canonical(lens_list)
+    return codes_mod.CodeTables(np.repeat(one.lens, n_rows, 0),
+                                np.repeat(one.vals, n_rows, 0))
+
+
+#: (longest code, code lengths) of K3's 16- and 8-state edge cases
+EDGE_CODES = {16: list(range(1, 16)) + [16, 16], 8: [8] * 256}
+
+
+@pytest.mark.parametrize("s_states", [16, 8])
+def test_fsm_decode_repeated_on_rows_of_many_lengths(cuda, s_states):
+    """K3 20 times in a row against its plain version (on the card) on a
+    (4, 4 MiB) batch of random payload bytes under a complete code (1-16
+    bits, or all 8 bits): a full row cut by its count inside a tile, a row
+    that ends on a tile boundary and underruns (at 16 states its symbols
+    pass the row width, where K3 drops them), a row of 123,457 bytes, a row
+    of 1 byte. A look-back that reads a neighbour's count too early, or an
+    edge word that two tiles share, shows only in some runs."""
+    rng = np.random.default_rng(30 + s_states)
+    p = 4 << 20
+    tile = _build.library().shafa_fsm_decode_tile_bytes()
+    plens = np.array([p, 977 * tile, 123_457, 1], np.int32)
+    st = rng.integers(0, 256, (4, p), dtype=np.uint8)
+    st[np.arange(p)[None, :] >= plens[:, None]] = 0
+    st[3, 0] = 0  # eight 1-bit codes at 16 states, one 8-bit code at 8
+    dt = tables_to_device(_complete_rows(EDGE_CODES[s_states], 4), cuda,
+                          decode=True)
+    planes = decode.rank_planes(torch.from_numpy(st).cuda(), dt.pc16, dt.ls,
+                                dt.lut12)
+    pl = torch.from_numpy(plens).cuda()
+    cnt = torch.tensor([3_000_000, 2 ** 31 - 1, 100_000, s_states // 8],
+                       dtype=torch.int32, device=cuda)
+    out_p = 4 << 20
+    want = decode.decode_rows_plain(planes, pl, cnt, s_states, out_p)
+    assert want[1].tolist() == [False, True, False, False]
+    before = _build.launches["fsm_decode"]
+    for _ in range(20):
+        got = decode.decode_rows(planes, pl, cnt, s_states, out_p)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert _build.launches["fsm_decode"] == before + 20
+
+
+def test_rank_on_rows_that_reach_the_row_width(cuda):
+    """K2 against its plain version where the payload fills every byte of
+    P, so the windows of the last two bytes read the zeros past it, on a
+    skewed 1-16-bit code (one-lookup and range entries) and on rows of
+    several tiles and of less than one."""
+    rng = np.random.default_rng(40)
+    for p in (1 << 20, 1024, 16):
+        st = rng.integers(0, 256, (3, p), dtype=np.uint8)
+        dt = tables_to_device(_complete_rows(EDGE_CODES[16], 3), "cpu",
+                              decode=True)
+        assert (dt.lut12.numpy() < 0).any()
+        want, got = _both(decode.rank_planes, st, dt.pc16.numpy(),
+                          dt.ls.numpy(), dt.lut12.numpy())
+        assert torch.equal(got.cpu(), want)
+
+
+def test_rank_and_fsm_decode_reject_widths_they_do_not_take(cuda):
+    """K2 reads a tile's bytes as int4; K3 reads a thread's 8 lanes of a
+    plane as two int4 and writes its rows as u32 words."""
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    tables = (torch.zeros((1, 256), dtype=torch.int32, device=cuda),
+              torch.zeros((1, 256), dtype=torch.int32, device=cuda),
+              torch.zeros((1, 4096), dtype=torch.int16, device=cuda))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        decode.rank_planes(torch.zeros((1, 1032), dtype=torch.uint8,
+                                       device=cuda), *tables)
+    planes = torch.zeros((8, 1028), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        decode.decode_rows(planes, one, one, 16, 256)
+    planes = torch.zeros((8, 1024), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        decode.decode_rows(planes, one, one, 16, 258)
 
 
 def test_fsm32_rejects_widths_not_a_multiple_of_8(cuda):

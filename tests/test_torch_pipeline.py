@@ -195,3 +195,39 @@ def test_per_stage_modules_check_and_no_multithread(tmp_path, monkeypatch,
         with open(p, "rb") as fp:
             assert fp.read() == data
     capsys.readouterr()
+
+
+def _bad_archive(path, kind):
+    """An N-mode archive of one block that decodes on the host by design:
+    a .cod block with no code at all, or one with codes of up to 34 bits
+    whose payload runs out before the block's count."""
+    from shafa_tpu_torch import formats
+    codes = [""] * 256
+    payload = bytes(2000)
+    if kind == "codes_over_32_bits":
+        code = prev = 0
+        for s, ln in enumerate(list(range(1, 34)) + [34, 34]):
+            code <<= ln - prev
+            codes[s] = format(code, f"0{ln}b")
+            code += 1
+            prev = ln
+        payload = b"\xff" * 40
+    with open(path + ".cod", "wb") as fp:
+        formats.write_cod(fp, "N", [5000], [codes])
+    with open(path + ".shaf", "wb") as fp:
+        formats.write_shaf_header(fp, 1)
+        formats.write_shaf_block(fp, payload)
+    return path + ".shaf"
+
+
+@pytest.mark.parametrize("backend", ["torch", "numpy"])
+@pytest.mark.parametrize("kind", ["all_empty_cod_block", "codes_over_32_bits"])
+def test_bad_archive_on_a_host_routed_block_is_not_recognized(
+        tmp_path, monkeypatch, capsys, kind, backend):
+    """The host route (oracle.unpack) of both backends ends the CLI as the
+    kernel route does: "File not recognized", exit 1, no output file."""
+    monkeypatch.setenv("SHAFA_TORCH_DEVICE", "cpu")
+    shaf = _bad_archive(str(tmp_path / kind), kind)
+    assert cli.main([shaf, "--backend", backend]) == 1
+    assert capsys.readouterr().err.endswith("File not recognized\n")
+    assert not os.path.exists(str(tmp_path / kind))
