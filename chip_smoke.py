@@ -5,24 +5,28 @@
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. the build of the CUDA kernels from shafa_tpu_torch/kernels/csrc/, and
-     K2's, K3's and K6's registers and spills per kernel as ``nvcc -Xptxas
-     -v`` gave them;
+     K1's, K2's, K3's, K5's and K6's registers and spills per kernel as
+     ``nvcc -Xptxas -v`` gave them;
   3. every kernel of the paths against its plain PyTorch version on the
      card, on the paths' shapes, exact equality, both timed with CUDA
      events: K1-K4 and K7 on the 200 MB mixed corpus's batches (K7 on the
-     planes K3 takes; then K2 -> K7 -> K1 must give K3's rows), K5 and K6
-     (its interleaved (B, 2P) vals and lens and its underrun flags) on the
-     (4, 8 MiB) decode batch of the 200 MB text corpus; beside each,
-     the least time the card could take (bytes over 3.35 TB/s) and, for
-     K4, torch.repeat_interleave, the one PyTorch call that computes the
-     same;
+     planes K3 takes; then K2 -> K7 -> K1 must give K3's rows; K1's time
+     beside that of its output's memset alone), K5 (below each row's
+     payload, where its planes are specified) and K6 (its interleaved (B,
+     2P) vals and lens and its underrun flags) on the (4, 8 MiB) decode
+     batch of the 200 MB text corpus; beside each, the least time the card
+     could take (bytes over 3.35 TB/s) and, for K4,
+     torch.repeat_interleave, the one PyTorch call that computes the same;
   4. K5 and the whole 17-32-bit decode chain on a hand-built complete table
      with codes of 26-32 bits against the NumPy oracle (the case of the JAX
      kernel's window fault); K2 once and K3 20 times, at 8 and 16 states,
      against their plain versions on rows at the edges of K3's look-back
      and output words (a full row cut by its count, a row that ends on a
      tile boundary and underruns past the row width, 123,457 bytes, 1
-     byte);
+     byte); K1, each variant 20 times, on rows at the edges of its tiles
+     and look-back (1 lane, a tile boundary and one lane past it, spans of
+     0-bit lanes, 32-bit payloads straddling words; P a multiple of 16 and
+     not), and K5 on rows that end on and just past a tile;
   5. two main paths through ``shafa_tpu_torch.cli.main([path, "-b", "m"])``
      and back from their .rle.shaf, each bit-exact, with the launch counts
      set to 0 before and read after: the 200,000,000-byte mixed corpus
@@ -191,6 +195,9 @@ def kernel_phase(data: bytes, dev) -> list[dict]:
                 8 * int(ld.sum()) + nbytes(ld) + int(enc_len.sum()),
                 lambda rows_: [rows_[i, :int(n)] for i, n in
                                enumerate(enc_len.tolist())])
+    # K1's share that zeroes its output (torch.zeros in the wrapper)
+    r["memset_ms"] = timed_ms(lambda: torch.zeros(
+        8 * stride, dtype=torch.int32, device=dev), 5)
     results.append(dict(name="emit_bits", shape=list(val.shape), **r))
     del val, bitlen
 
@@ -198,6 +205,8 @@ def kernel_phase(data: bytes, dev) -> list[dict]:
                 lambda: emit.emit_coded_plain(*pack_args),
                 int(enc_len.sum()) + nbytes(*pack_args[1:5])
                 + 4 * pack_args[5], lambda flat: [flat])
+    r["memset_ms"] = timed_ms(lambda: torch.zeros(
+        pack_args[5], dtype=torch.int32, device=dev), 5)
     results.append(dict(name="emit_coded", shape=list(enc.shape), **r))
     counts_np = enc_len.cpu().numpy().astype(np.int32)
     del x, enc, pack_args
@@ -279,6 +288,34 @@ def kernel_phase(data: bytes, dev) -> list[dict]:
     return results
 
 
+def k5_tables(tables, dev) -> list:
+    """K5's tables of a CodeTables batch on the card: pc32, ls, ncodes and
+    the 12-bit table."""
+    from shafa_tpu_torch.kernels import decode
+    tabs = decode.rank_tables32(decode.decode_tables_batch(tables.lens,
+                                                           tables.vals))
+    return [torch_from(a, dev) for a in (*tabs, decode.rank_lut12_32(*tabs))]
+
+
+def torch_from(a: np.ndarray, dev):
+    import torch
+    return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+
+def below_payload(plens):
+    """unpack of K5's planes for compare: the entries below each row's
+    payload length (the kernel leaves the others unspecified)."""
+    import torch
+    b = plens.shape[0]
+
+    def unpack(planes):
+        p = planes.shape[1] // b
+        below = torch.arange(p, device=planes.device)[None, :] \
+            < plens.to(planes.device)[:, None]
+        return [planes.reshape(8, b, p)[:, below]]
+    return unpack
+
+
 def kernel32_phase(text: bytes, dev) -> list[dict]:
     """K5 and K6 against their plain versions on the 17-32-bit path's
     decode batch: the payloads of the text corpus's first 4 blocks, as the
@@ -296,28 +333,26 @@ def kernel32_phase(text: bytes, dev) -> list[dict]:
     pst, plens = _stack_blocks(payloads, minimum=1024)
     payload = int(plens.sum())
     counts_np = enc_len.cpu().numpy().astype(np.int32)
-    pc32, ls, ncodes = (torch.from_numpy(a).to(dev) for a in
-                        decode.rank_tables32(decode.decode_tables_batch(
-                            tables.lens, tables.vals)))
-    w32 = decode.windows32_bytes(torch.from_numpy(pst).to(dev))
-    results = []
-    r = compare("K5 rank32",
-                lambda: decode.rank_planes32(w32, pc32, ls, ncodes),
-                lambda: decode.rank_planes32_plain(w32, pc32, ls, ncodes),
-                36 * payload + nbytes(pc32, ls, ncodes),
-                lambda t: [t])
-    results.append(dict(name="rank32", shape=list(w32.shape), **r))
-    planes = decode.rank_planes32(w32, pc32, ls, ncodes)
+    k5 = k5_tables(tables, dev)
+    px = torch.from_numpy(pst).to(dev)
     pl = torch.from_numpy(plens).to(dev)
     cnt = torch.from_numpy(counts_np).to(dev)
+    results = []
+    # K5 reads 1 B and writes 32 B of planes per payload byte, and its tables
+    r = compare("K5 rank32",
+                lambda: decode.rank_planes32(px, pl, *k5),
+                lambda: decode.rank_planes32_plain(px, *k5[:3]),
+                33 * payload + nbytes(*k5), below_payload(pl))
+    results.append(dict(name="rank32", shape=list(px.shape), **r))
+    planes = decode.rank_planes32(px, pl, *k5)
     r = compare("K6 fsm32",
                 lambda: decode.fsm32_packs(planes, pl, cnt),
                 lambda: decode.fsm32_packs_plain(planes, pl, cnt),
                 48 * payload + nbytes(pl, cnt) + drows, lambda t: list(t))
     results.append(dict(name="fsm32", shape=[drows, pst.shape[1]], **r))
-    dec, under = decode.decode_batch32(
-        torch.from_numpy(pst).to(dev), pl, pc32, ls, ncodes, cnt,
-        _bucket(int(counts_np.max())))
+    del planes
+    dec, under = decode.decode_batch32(px, pl, *k5, cnt,
+                                       _bucket(int(counts_np.max())))
     if bool(under.any()):
         fail("K6 flagged underrun on the text corpus")
     for i, n in enumerate(counts_np):
@@ -360,17 +395,15 @@ def fault_phase(dev) -> None:
     payload = oracle.pack(blk, tables.lens[0], tables.vals[0])
     st, plens = _stack_blocks([np.frombuffer(payload, np.uint8)],
                               minimum=1024)
-    pc32, ls, ncodes = (torch.from_numpy(a).to(dev) for a in
-                        decode.rank_tables32(decode.decode_tables_batch(
-                            tables.lens, tables.vals)))
+    k5 = k5_tables(tables, dev)
     x = torch.from_numpy(st).to(dev)
-    w32 = decode.windows32_bytes(x)
-    if not torch.equal(decode.rank_planes32(w32, pc32, ls, ncodes),
-                       decode.rank_planes32_plain(w32, pc32, ls, ncodes)):
+    pl = torch.from_numpy(plens).to(dev)
+    unpack = below_payload(pl)
+    if not torch.equal(unpack(decode.rank_planes32(x, pl, *k5))[0],
+                       unpack(decode.rank_planes32_plain(x, *k5[:3]))[0]):
         fail("K5 differs from its plain version on 26-32-bit codes")
     dec, under = decode.decode_batch32(
-        x, torch.from_numpy(plens).to(dev), pc32, ls, ncodes,
-        torch.tensor([blk.size], dtype=torch.int32, device=dev),
+        x, pl, *k5, torch.tensor([blk.size], dtype=torch.int32, device=dev),
         _bucket(blk.size))
     want = oracle.unpack(payload, tables.row_strings(0), blk.size)
     if bool(under.any()) or not np.array_equal(
@@ -430,6 +463,86 @@ def edge_phase(dev) -> None:
         torch.cuda.empty_cache()
     print("edge rows (4, 4 MiB): K2 exact vs plain, K3 exact vs plain in 20 "
           "runs each at 8 and 16 states", flush=True)
+
+
+def emit_edge_case(variant: str, aligned: bool, tile: int, dev):
+    """K1's edge rows, six rows of P lanes (P a multiple of 16, or not, so
+    that lanes are read one at a time): a 1-lane row, rows that end on a
+    tile boundary and one lane past it, a row whose tiles 2-40 hold only
+    0-bit lanes (they publish 0 to the look-back), a row of 32-bit payloads
+    after one 5-bit lane (each straddles two words), a row of 123,457
+    lanes; rows start at word offsets that are not 16-byte aligned and the
+    buffer ends inside the last row. Returns (kernel, plain) calls."""
+    from shafa_tpu_torch.kernels import emit
+
+    rng = np.random.default_rng(SEED + (7 if aligned else 8))
+    b, p = 6, 48 * tile + (0 if aligned else 3)
+    row_lens = np.array([1, 16 * tile, 16 * tile + 1, p, p, 123_457],
+                        np.int32)
+    if variant == "bits":
+        lens = rng.integers(0, 33, (b, p)).astype(np.int32)
+        lens[3, 2 * tile:41 * tile] = 0
+        lens[4] = 32
+        lens[4, 0] = 5
+        args = (rng.integers(0, 1 << 32, (b, p), dtype=np.uint64)
+                .astype(np.uint32).view(np.int32), lens, row_lens)
+    else:
+        x = rng.integers(1, 256, (b, p), dtype=np.uint8)
+        x[3, 2 * tile:41 * tile] = 0
+        x[4, 0], x[4, 1:] = 1, 255
+        lut_len = rng.integers(1, 33, (b, 256)).astype(np.int32)
+        lut_len[:, 0] = 0
+        lut_len[4, 1], lut_len[4, 255] = 5, 32
+        lens = np.take_along_axis(lut_len, x.astype(np.int64), 1)
+        args = (x, row_lens, lut_len,
+                rng.integers(0, 1 << 32, (b, 256), dtype=np.uint64)
+                .astype(np.uint32).view(np.int32))
+    words = [(int(lens[r, :n].sum()) + 31) // 32
+             for r, n in enumerate(row_lens)]
+    woff = np.cumsum([0] + [w + 3 for w in words[:-1]]) + 1
+    out_words = int(woff[-1]) + words[-1] // 2
+    on_card = [torch_from(a, dev) for a in (*args, woff.astype(np.int32))]
+    if variant == "bits":
+        return (lambda: emit.emit_bits(*on_card, out_words),
+                lambda: emit.emit_bits_plain(*on_card, out_words))
+    return (lambda: emit.emit_coded(*on_card, out_words),
+            lambda: emit.emit_coded_plain(*on_card, out_words))
+
+
+def k1_k5_edge_phase(dev) -> None:
+    """K1, each variant 20 times at each P, against its plain version on
+    its edge rows; K5 against its plain version below each row's payload on
+    rows that fill P, end inside a tile, on a tile boundary and one byte
+    past it, and hold 1 byte (random bytes under the complete 1-32-bit
+    code)."""
+    import torch
+    from shafa_tpu_torch.kernels import _build, decode
+
+    lib = _build.library()
+    for variant in ("bits", "coded"):
+        for aligned in (True, False):
+            kernel, plain = emit_edge_case(
+                variant, aligned, lib.shafa_emit_tile_lanes(), dev)
+            want = plain()
+            for _ in range(20):
+                if not torch.equal(kernel(), want):
+                    fail(f"K1 {variant} differs from its plain version on "
+                         f"the edge rows (P a multiple of 16: {aligned})")
+    tile = lib.shafa_rank32_tile_bytes()
+    p = 1 << 16
+    plens = np.array([p, 3 * tile + 100, 2 * tile, 2 * tile + 1, 1],
+                     np.int32)
+    st = np.random.default_rng(SEED + 50).integers(0, 256, (5, p),
+                                                   dtype=np.uint8)
+    k5 = k5_tables(canonical_tables(list(range(1, 32)) + [32, 32], 5), dev)
+    x, pl = torch_from(st, dev), torch_from(plens, dev)
+    unpack = below_payload(pl)
+    if not torch.equal(unpack(decode.rank_planes32(x, pl, *k5))[0],
+                       unpack(decode.rank_planes32_plain(x, *k5[:3]))[0]):
+        fail("K5 differs from its plain version on its edge rows")
+    print("edge rows: K1 bits and LUT exact vs plain in 20 runs each, P a "
+          "multiple of 16 and not; K5 exact vs plain below the payload on "
+          f"rows of {plens.tolist()} bytes", flush=True)
 
 
 def run_cli(argv: list[str], log) -> None:
@@ -569,7 +682,8 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds:.2f} s, one process per source)",
           flush=True)
-    for label, prefix in (("K2", "rank_lut"), ("K3", "fsm16_"),
+    for label, prefix in (("K1", "emit_tiles"), ("K2", "rank_lut"),
+                          ("K3", "fsm16_"), ("K5", "rank32_"),
                           ("K6", "fsm32_")):
         res = _build.resources(prefix)
         if not res:
@@ -589,11 +703,14 @@ def main() -> int:
     for k in kernels:
         lib = "" if k["library_ms"] is None else \
             f", library {k['library_ms']:.3f} ms"
-        print(f"{k['name']}: shape {k['shape']} kernel {k['ms']:.3f} ms, "
-              f"plain {k['plain_ms']:.3f} ms, bound {k['bound_ms']:.3f} ms"
-              f"{lib}, exact", flush=True)
+        memset = f" (its output's memset alone {k['memset_ms']:.3f} ms)" \
+            if "memset_ms" in k else ""
+        print(f"{k['name']}: shape {k['shape']} kernel {k['ms']:.3f} ms"
+              f"{memset}, plain {k['plain_ms']:.3f} ms, bound "
+              f"{k['bound_ms']:.3f} ms{lib}, exact", flush=True)
     fault_phase(dev)
     edge_phase(dev)
+    k1_k5_edge_phase(dev)
     torch.cuda.empty_cache()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")

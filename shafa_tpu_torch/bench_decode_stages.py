@@ -149,13 +149,13 @@ def main(argv: list[str] | None = None) -> int:
             return kdecode.decode_batch(py, pl, dt.pc16, dt.ls, dt.lut12,
                                         cts, out_p, s_states)
     else:
-        pc32, ls32, ncodes = (torch.from_numpy(a).to(dev) for a in
-                              kdecode.rank_tables32(kdecode.decode_tables_batch(
-                                  tables.lens, tables.vals)))
+        tabs32 = kdecode.rank_tables32(kdecode.decode_tables_batch(
+            tables.lens, tables.vals))
+        k5_tables = [torch.from_numpy(a).to(dev) for a in
+                     (*tabs32, kdecode.rank_lut12_32(*tabs32))]
 
         def decode():
-            return kdecode.decode_batch32(py, pl, pc32, ls32, ncodes, cts,
-                                          out_p)
+            return kdecode.decode_batch32(py, pl, *k5_tables, cts, out_p)
     dec, under = decode()
     _check("no underrun", not bool(under.any()), failed)
 

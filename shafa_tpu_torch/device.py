@@ -436,9 +436,10 @@ class TorchBackend:
         """One batch of blocks whose codes have 17-32 bits: K5, K6, K1."""
         pc32, ls, ncodes = kdecode.rank_tables32(
             kdecode.decode_tables_batch(sub.lens, sub.vals))
-        return kdecode.decode_batch32(stacked, plens, self._upload(pc32),
-                                      self._upload(ls), self._upload(ncodes),
-                                      counts, out_p)
+        lut = kdecode.rank_lut12_32(pc32, ls, ncodes)
+        return kdecode.decode_batch32(
+            stacked, plens, *map(self._upload, (pc32, ls, ncodes, lut)),
+            counts, out_p)
 
     def _decode_group(self, payloads, tables, out_counts, expand, group,
                       results, decode) -> None:

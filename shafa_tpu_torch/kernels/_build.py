@@ -40,8 +40,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "shafa_emit_tile_lanes": [],
-    "shafa_emit": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _L, _P, _P, _P, _L,
-                   _P],
+    "shafa_emit": [_P, _P, _P, _P, _P, _I, _P, _P, _I, _L, _P, _P, _L, _P],
     "shafa_rank_lut_entries": [],
     "shafa_rank_planes": [_P, _P, _P, _P, _I, _L, _P, _P],
     "shafa_fsm_decode_tile_bytes": [],
@@ -50,7 +49,8 @@ _SIGNATURES = {
     "shafa_fsm_packs": [_P, _P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P,
                         _P, _P],
     "shafa_expand": [_P, _P, _P, _I, _L, _P, _L, _P],
-    "shafa_rank_planes32": [_P, _P, _P, _P, _I, _L, _P, _P],
+    "shafa_rank32_tile_bytes": [],
+    "shafa_rank_planes32": [_P, _P, _P, _P, _P, _P, _I, _L, _P, _P],
     "shafa_fsm32_tile_bytes": [],
     "shafa_fsm32": [_P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _P, _P],
 }
@@ -121,12 +121,14 @@ def build() -> Path:
 
 
 _LENGTH = re.compile(r"\d+")
+_TEMPLATE = re.compile(r"I((?:L[a-z]+\d+E)+)E")
 
 
 def _kernel_name(mangled: str) -> str:
     """A kernel's name from its mangled one: the last length-prefixed name
     of a nested name (_ZN ... E, after any namespaces, anonymous ones
-    included), or the name after _Z."""
+    included), or the name after _Z; a template's literal arguments follow
+    it as <1,0>."""
     m = re.match(r"_ZN?", mangled)
     pos = m.end() if m else 0
     name = mangled
@@ -135,6 +137,8 @@ def _kernel_name(mangled: str) -> str:
         name = mangled[m.end():pos]
         if not mangled.startswith("_ZN"):
             break
+    if m := _TEMPLATE.match(mangled, pos):
+        name += "<" + ",".join(_LENGTH.findall(m.group(1))) + ">"
     return name
 
 

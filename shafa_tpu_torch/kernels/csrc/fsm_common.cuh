@@ -5,7 +5,8 @@
 // sym | len << 8 of the code starting at bit 8j+b. A byte's eight entries
 // become a Byte (gather4 takes one byte of four entries); its E table is
 // the state machine's step (byte_e); a tile's symbol count reaches the later
-// tiles of its row through a decoupled look-back (look_back).
+// tiles of its row through a decoupled look-back (look_back), which also
+// carries K1's bit offsets along a row (emit.cu).
 #pragma once
 
 #include "common.cuh"
@@ -53,7 +54,7 @@ __device__ __forceinline__ void byte_e(const Byte& by, uint32_t& lo,
 }
 
 // Status word of a tile in the look-back: a flag in the top two bits, a
-// symbol count below; 0 until the tile publishes.
+// count (symbols, or K1's bits) below; 0 until the tile publishes.
 constexpr u64 STATUS_AGGREGATE = 1ull << 62;  // the tile's own count
 constexpr u64 STATUS_PREFIX = 2ull << 62;     // its row's count up to it
 constexpr u64 STATUS_VALUE = STATUS_AGGREGATE - 1;

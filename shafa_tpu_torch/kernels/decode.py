@@ -11,9 +11,11 @@ indexed by the window's top 12 bits (K2, csrc/rank.cu) -> the boundary
 state machine, which writes the decoded bytes into each row and flags
 underrun (K3, csrc/fsm_decode.cu).
 
-Codes of 17-32 bits (_decode_fused32_tpu, decode.py:580): big-endian byte
-windows -> the code at every bit position on full 32-bit windows (K5,
-csrc/rank32.cu) -> the 32-state boundary machine, which replays each
+Codes of 17-32 bits (_decode_fused32_tpu, decode.py:580): the payload
+bytes -> the code at every bit position on full 32-bit windows, found with
+one lookup in a table indexed by the window's top 12 bits and, where those
+leave it open, a short search (K5, csrc/rank32.cu) -> the 32-state
+boundary machine, which replays each
 byte's symbols into two packs clipped at the row's count, interleaved as
 (B, 2P) lanes (K6, csrc/fsm32.cu) -> K1's bits emission concatenates them
 into the decoded rows.
@@ -148,14 +150,30 @@ def rank_lut12(pc16: np.ndarray, ls: np.ndarray) -> np.ndarray:
     and longer ones is a range too.
     """
     pc = np.asarray(pc16).astype(np.int64)
+    return _lut12(pc, pc < NO_CODE, ls, 4)
+
+
+def rank_lut12_32(pc32: np.ndarray, ls: np.ndarray,
+                  ncodes: np.ndarray) -> np.ndarray:
+    """K5's tables (rank_tables32) -> (n, 4096) int16: rank_lut12 for
+    32-bit windows. Entry t covers the windows t << 20 .. (t << 20) +
+    2^20 - 1; a range entry's search runs over pc32 as unsigned values,
+    bounded by the row's ncodes (csrc/rank32.cu::search)."""
+    pc = np.asarray(pc32).astype(np.int64) & 0xFFFFFFFF
+    valid = np.arange(256)[None, :] < np.asarray(ncodes)[:, None]
+    return _lut12(pc, valid, ls, 20)
+
+
+def _lut12(pc: np.ndarray, valid: np.ndarray, ls, low_bits: int):
+    """rank_lut12 over windows of 12 + low_bits bits: pc (n, 256) int64
+    sorted codes, valid the ranks that hold one."""
     n = pc.shape[0]
-    valid = pc < NO_CODE
-    slot = (np.arange(n)[:, None] * 4096 + (pc >> 4))[valid]
+    slot = (np.arange(n)[:, None] * 4096 + (pc >> low_bits))[valid]
     hist = np.bincount(slot, minlength=n * 4096).reshape(n, 4096)
-    at_lo = np.bincount(slot[(pc[valid] & 15) == 0],
+    at_lo = np.bincount(slot[(pc[valid] & ((1 << low_bits) - 1)) == 0],
                         minlength=n * 4096).reshape(n, 4096)
-    le_hi = np.cumsum(hist, axis=1)     # codes with pc16 <= 16t + 15
-    le_lo = le_hi - hist + at_lo        # codes with pc16 <= 16t
+    le_hi = np.cumsum(hist, axis=1)     # codes <= the prefix's last window
+    le_lo = le_hi - hist + at_lo        # codes <= its first window
     r_lo, r_hi = le_lo - 1, le_hi - 1
     code = np.take_along_axis(np.asarray(ls).astype(np.int64),
                               np.maximum(r_hi, 0), axis=1)
@@ -168,7 +186,9 @@ def rank_lut12(pc16: np.ndarray, ls: np.ndarray) -> np.ndarray:
 
 def windows32_bytes(payload: torch.Tensor) -> torch.Tensor:
     """(B, P) uint8 -> (B, P) int32: bytes j..j+3 big-endian, zero past the
-    row (decode.py:354)."""
+    row. Copy of decode.py:354, which builds the JAX rank kernels' input;
+    no route of the port calls it, since K2 and K5 read the payload bytes
+    themselves."""
     b, p = payload.shape
     by = torch.zeros((b, p + 3), dtype=torch.int64, device=payload.device)
     by[:, :p] = payload
@@ -336,15 +356,18 @@ def decode_batch(payload, payload_lens, pc16, ls, lut12, out_counts,
 
 # -- codes of 17-32 bits: K5, K6 --------------------------------------------
 
-def rank_planes32_plain(w32, pc32, ls, ncodes):
-    """Plain version of rank_planes32: searchsorted per bit offset, bounded
-    by the row's code count."""
-    b, p = w32.shape
-    dev = w32.device
-    w = w32.to(torch.int64) & 0xFFFFFFFF
-    nxt = torch.zeros_like(w)  # byte j+4: the low byte of window j+1
-    nxt[:, :-1] = w[:, 1:] & 0xFF
-    w40 = (w << 8) | nxt
+def rank_planes32_plain(payload, pc32, ls, ncodes):
+    """Plain version of rank_planes32: the windows from the bytes, then
+    searchsorted per bit offset, bounded by the row's code count (no
+    12-bit table). Every lane of the batch is computed."""
+    b, p = payload.shape
+    dev = payload.device
+    by = torch.zeros((b, p + 4), dtype=torch.int64, device=dev)
+    by[:, :p] = payload
+    w40 = by[:, :p] << 32  # bytes j..j+4, big-endian
+    for i in range(1, 5):
+        w40 |= by[:, i:p + i] << (32 - 8 * i)
+    del by
     nc = ncodes.to(dev, torch.int64)[:, None]
     pc = pc32.to(torch.int64) & 0xFFFFFFFF
     # past the row's codes, repeat its last code: sorted, and min(., nc)
@@ -362,23 +385,37 @@ def rank_planes32_plain(w32, pc32, ls, ncodes):
     return torch.stack(planes).reshape(8, b * p).to(torch.int32)
 
 
-def rank_planes32(w32: torch.Tensor, pc32: torch.Tensor, ls: torch.Tensor,
-                  ncodes: torch.Tensor) -> torch.Tensor:
-    """(B, P) int32 byte windows + K5 tables (rank_tables32) -> (8, B*P)
-    int32 planes, K2's layout: plane s, lane r*P + j = sym | len << 8 of the
-    code at bit 8j+s of row r (0 where no code fits, which a complete table
-    never gives). The window there spans bytes j..j+4; byte j+4 is the low
-    byte of window j+1 (zero past the row)."""
-    if w32.device.type == "cpu":
-        return rank_planes32_plain(w32, pc32, ls, ncodes)
-    b, p = w32.shape
-    dev = w32.device
-    args = [_build.ptr(w32, torch.int32, (b, p), dev),
+def rank_planes32(payload: torch.Tensor, payload_lens: torch.Tensor,
+                  pc32: torch.Tensor, ls: torch.Tensor, ncodes: torch.Tensor,
+                  lut: torch.Tensor) -> torch.Tensor:
+    """(B, P) uint8 payloads + K5 tables (rank_tables32, rank_lut12_32) ->
+    (8, B*P) int32 planes, K2's layout: plane s, lane r*P + j = sym | len
+    << 8 of the code at bit 8j+s of row r (0 where no code fits, which a
+    complete table never gives). The window there spans bytes j..j+4, bytes
+    past P read as zero. Entries at or past a row's payload length
+    (payload_lens, (B,) int32) are unspecified: the kernel writes the lanes
+    below it, rounded up to a multiple of 4, and K6 reads no others. On the
+    card P must be a multiple of 16 (the decode batches' widths are powers
+    of two >= 1024)."""
+    if payload.device.type == "cpu":
+        return rank_planes32_plain(payload, pc32, ls, ncodes)
+    b, p = payload.shape
+    if p % 16:
+        raise ValueError(f"rank_planes32: payload width {p} is not a "
+                         "multiple of 16")
+    dev = payload.device
+    lib = _build.library()
+    args = [_build.ptr(payload, torch.uint8, (b, p), dev),
+            _build.ptr(payload_lens, torch.int32, (b,), dev),
+            _build.ptr(lut, torch.int16, (b, lib.shafa_rank_lut_entries()),
+                       dev),
             _build.ptr(pc32, torch.int32, (b, 256), dev),
             _build.ptr(ls, torch.int32, (b, 256), dev),
             _build.ptr(ncodes, torch.int32, (b,), dev)]
+    if args[0] % 16 or args[2] % 16:
+        raise ValueError("rank_planes32: payload and table need 16-byte "
+                         "alignment")
     out = torch.empty((8, b * p), dtype=torch.int32, device=dev)
-    lib = _build.library()
     _build.launches["rank32"] += 1
     _build.check(lib.shafa_rank_planes32(*args, b, p, out.data_ptr(),
                                          _build.stream(dev)), "rank32")
@@ -523,13 +560,13 @@ def emit_packs(val1, val2, len1, len2, payload_lens, stride_words: int):
                           2 * payload_lens, stride_words)
 
 
-def decode_batch32(payload, payload_lens, pc32, ls, ncodes, out_counts,
+def decode_batch32(payload, payload_lens, pc32, ls, ncodes, lut, out_counts,
                    out_p: int):
     """(B, P) packed payloads -> ((B, out_p) uint8 decoded rows, underrun)
-    for codes of 17-32 bits: windows, K5, K6, K1 (K6's packs go to K1 as
-    K6 lays them out). Tables from rank_tables32. Row r's symbols are
-    out[r, :out_counts[r]]; the bytes after them are zero."""
-    planes = rank_planes32(windows32_bytes(payload), pc32, ls, ncodes)
+    for codes of 17-32 bits: K5, K6, K1 (K6's packs go to K1 as K6 lays
+    them out). Tables from rank_tables32 and rank_lut12_32. Row r's symbols
+    are out[r, :out_counts[r]]; the bytes after them are zero."""
+    planes = rank_planes32(payload, payload_lens, pc32, ls, ncodes, lut)
     vals, lens, under = fsm32_packs(planes, payload_lens, out_counts)
     del planes
     return _rows_of_packs(vals, lens, under, payload_lens, out_p)

@@ -108,14 +108,13 @@ def _emit_cuda(b: int, p: int, row_lens, woff, out_words: int, *,
             _build.ptr(woff, torch.int32, (b,), dev)]
     lib = _build.library()
     n_tiles = -(-p // lib.shafa_emit_tile_lanes())
-    tile_bits = torch.empty((b, n_tiles), dtype=torch.int64, device=dev)
-    tile_offs = torch.empty_like(tile_bits)
+    # look-back words of the (B, n_tiles) tiles, then the ticket
+    status = torch.empty(b * n_tiles + 1, dtype=torch.int64, device=dev)
     out = torch.zeros(out_words, dtype=torch.int32, device=dev)
     _build.launches["emit_coded" if lut else "emit_bits"] += 1
     _build.check(lib.shafa_emit(
-        *ptrs, int(lut), *rows, b, p, tile_bits.data_ptr(),
-        tile_offs.data_ptr(), out.data_ptr(), out_words, _build.stream(dev)),
-        "emit")
+        *ptrs, int(lut), *rows, b, p, status.data_ptr(), out.data_ptr(),
+        out_words, _build.stream(dev)), "emit")
     return out
 
 

@@ -52,8 +52,6 @@ from .kernels import pack as kpack
 from .kernels import rle as krle
 
 #: (owner, attribute) of every function the stage-timed run times.
-#: windows32_bytes runs only on the 17-32-bit route (K5 reads windows; K2
-#: reads the payload bytes).
 STAGES = [
     (pipeline, "_open_read"), (pipeline, "_read_blocks"),
     (formats, "write_freq_arrays"), (formats, "write_cod_tables"),
@@ -70,7 +68,7 @@ STAGES = [
     (krle, "rle_encode_batch"), (krle, "rle_payloads"),
     (khist, "histogram_batch"), (kpack, "pack_batch"),
     (kops, "compact_rows"), (kdecode, "decode_batch"),
-    (kdecode, "windows32_bytes"), (kdecode, "rank_planes"),
+    (kdecode, "rank_planes"),
     (kdecode, "decode_rows"), (kdecode, "decode_batch32"),
     (kdecode, "rank_planes32"), (kdecode, "fsm32_packs"),
     (kdecode, "emit_packs"), (kdecode, "emit_bits_rows"),

@@ -41,9 +41,11 @@ def test_resources_reads_the_ptxas_report(tmp_path, monkeypatch, anonymous):
     ("_ZN12_GLOBAL__N_115rank_lut_planesEPKhPKsPKiS5_xxPi",
      "rank_lut_planes"),
     ("_Z12plain_kerneli", "plain_kernel"),
+    ("_ZN12_GLOBAL__N_110emit_tilesILb1ELb0EEEvNS_4ArgsE",
+     "emit_tiles<1,0>"),
 ])
 def test_kernel_name_of_a_nested_or_plain_mangled_name(mangled, name):
     """A kernel inside a namespace nested in the anonymous one (K3's and
     K7's in fsm_decode.cu) keeps its own name, the last of the nested
-    name."""
+    name; a template instance (K1's) names its literal arguments."""
     assert _build._kernel_name(mangled) == name

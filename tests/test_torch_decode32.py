@@ -65,19 +65,26 @@ def _batch(rng):
     return tables, blocks, payloads, counts, st, plens
 
 
+def _k5_tables(tables):
+    """K5's tables of a CodeTables batch: pc32, ls, ncodes and the 12-bit
+    table, as CPU tensors."""
+    tabs = decode.rank_tables32(decode.decode_tables_batch(tables.lens,
+                                                           tables.vals))
+    return [torch.from_numpy(a)
+            for a in (*tabs, decode.rank_lut12_32(*tabs))]
+
+
 @pytest.fixture(scope="module")
 def batch():
-    """The batch, K5's planes from the port (plain) and from the JAX
-    package's Pallas kernel (interpret mode)."""
+    """The batch, K5's planes from the port (plain, from the payload bytes)
+    and from the JAX package's Pallas kernel (interpret mode, from the
+    windows its caller builds)."""
     tables, blocks, payloads, counts, st, plens = _batch(
         np.random.default_rng(17))
-    w32 = decode.windows32_bytes(torch.from_numpy(st))
-    pc32, ls, ncodes = decode.rank_tables32(
-        decode.decode_tables_batch(tables.lens, tables.vals))
-    planes = decode.rank_planes32(w32, torch.from_numpy(pc32),
-                                  torch.from_numpy(ls),
-                                  torch.from_numpy(ncodes))
-    jw = jnp.asarray(w32.numpy())
+    tabs = _k5_tables(tables)
+    planes = decode.rank_planes32(torch.from_numpy(st),
+                                  torch.from_numpy(plens), *tabs)
+    jw = jdec.windows32_bytes(st)
     ln8, sym8 = jdec.rank_planes32_pallas(
         jw, jnp.pad(jw[:, 1:], ((0, 0), (0, 1))),
         *jdec.rank_tables32(jdec.decode_tables_batch(tables.lens,
@@ -85,8 +92,7 @@ def batch():
         interpret=True)
     return dict(tables=tables, blocks=blocks, payloads=payloads,
                 counts=counts, st=st, plens=plens, planes=planes,
-                tabs=(pc32, ls, ncodes), ln8=np.asarray(ln8),
-                sym8=np.asarray(sym8))
+                tabs=tabs, ln8=np.asarray(ln8), sym8=np.asarray(sym8))
 
 
 def test_rank_planes32_matches_pallas(batch):
@@ -98,6 +104,93 @@ def test_rank_planes32_matches_pallas(batch):
                                   batch["ln8"])
     np.testing.assert_array_equal(
         (planes & 255).astype(np.uint8).view(np.int8), batch["sym8"])
+
+
+def _lut32_lookup(lut, pc32, ls, nc, w):
+    """K5's lookup of one row's 32-bit windows (csrc/rank32.cu), in numpy:
+    the entry of the window's top 12 bits, or the binary search over the
+    row's nc codes that a range entry asks for. lut (4096,) int16, pc32
+    and ls (256,)."""
+    w = np.asarray(w).astype(np.int64)
+    pc = np.asarray(pc32).astype(np.int64) & 0xFFFFFFFF
+    e = np.asarray(lut)[w >> 20].astype(np.int64)
+    lo = e & 255
+    r = lo.copy()
+    step = (1 << ((e >> 8) & 15)) >> 1
+    while step.any():
+        nxt = r + step
+        take = (step > 0) & (nxt < nc) & (pc[np.minimum(nxt, 255)] <= w)
+        r = np.where(take, nxt, r)
+        step >>= 1
+    found = np.where(pc[lo] <= w, np.asarray(ls).astype(np.int64)[r], 0)
+    return np.where(e < 0, found, e)
+
+
+def _lut32_case(kind):
+    """(pc32, ls, ncodes) rows of K5's tables: from the text corpus's code
+    table, the complete canonical 1-32-bit code, a single-symbol block, or
+    written out where no complete prefix code gives them (codes above
+    window 0, a gap, a 12-bit prefix shared by a 12-bit and two 30-bit
+    codes)."""
+    if kind == "text":
+        t, _ = _text_case(np.random.default_rng(3))
+    elif kind == "canonical_1_to_32":
+        t = _canonical(list(range(1, 32)) + [32, 32])
+    elif kind == "single_symbol":  # the code "0" (docs/DEVIATIONS.md §1)
+        hist = np.zeros((1, 256), np.int64)
+        hist[0, 65] = 9
+        t = codes_mod.build_code_tables(hist)
+    else:
+        pcs = [0x00300000, 0x00300004, 0x00300008, 0x0F000000, 0x80000000]
+        lens = [12, 30, 30, 8, 1]
+        pc32 = np.zeros((1, 256), np.uint32)
+        ls = np.zeros((1, 256), np.int32)
+        pc32[0, :len(pcs)] = pcs
+        ls[0, :len(pcs)] = [(s + 1) | (ln << 8) for s, ln in enumerate(lens)]
+        return pc32.view(np.int32), ls, np.array([len(pcs)], np.int32)
+    return decode.rank_tables32(decode.decode_tables_batch(t.lens, t.vals))
+
+
+@pytest.mark.parametrize("kind", ["text", "canonical_1_to_32",
+                                  "single_symbol", "incomplete"])
+def test_rank_lut12_32_gives_searchsorted(kind):
+    """K5's lookup (the 12-bit table, and the range search where its entry
+    asks for one) against searchsorted over the row's codes, on every
+    12-bit prefix with its low 20 bits at 0, at all ones and at every
+    code's low bits and one either side of them."""
+    pc32, ls, ncodes = _lut32_case(kind)
+    lut = decode.rank_lut12_32(pc32, ls, ncodes)
+    assert lut.shape == (1, 4096) and lut.dtype == np.int16
+    nc = int(ncodes[0])
+    pc = pc32[0].astype(np.int64) & 0xFFFFFFFF
+    low = np.unique(np.concatenate([
+        [0, 0xFFFFF], *[((pc[:nc] & 0xFFFFF) + d) & 0xFFFFF
+                        for d in (-1, 0, 1)]]))
+    w = ((np.arange(4096, dtype=np.int64)[:, None] << 20) | low).ravel()
+    r = np.searchsorted(pc[:nc], w, side="right") - 1
+    want = np.where(r >= 0, ls[0][np.maximum(r, 0)], 0)
+    np.testing.assert_array_equal(_lut32_lookup(lut[0], pc32[0], ls[0], nc, w),
+                                  want)
+    # the text's short codes resolve in one lookup, its 17-20-bit ones not
+    assert (lut[0] < 0).any() == (kind != "single_symbol")
+
+
+def test_planes_past_the_payload_leave_fsm32_packs_unchanged(batch):
+    """K5 leaves its plane entries at or past each row's payload length
+    unspecified: garbage there changes neither K6's packs nor its underrun
+    flags (fsm32_packs_plain, the function the kernel is held to)."""
+    b = batch["plens"].size
+    p = batch["planes"].shape[1] // b
+    past = np.arange(p)[None, :] >= batch["plens"][:, None]
+    junk = batch["planes"].clone().reshape(8, b, p)
+    noise = np.random.default_rng(6).integers(-2**31, 2**31, junk.shape)
+    junk[:, torch.from_numpy(past)] = torch.from_numpy(
+        noise[:, past].astype(np.int32))
+    plens, counts = (torch.from_numpy(batch[k]) for k in ("plens", "counts"))
+    want = decode.fsm32_packs_plain(batch["planes"], plens, counts)
+    got = decode.fsm32_packs_plain(junk.reshape(8, b * p), plens, counts)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def _match_pallas(planes, ln8, sym8, plens, counts):
@@ -171,18 +264,15 @@ def test_fsm32_packs_at_tile_edges_match_pallas(case):
     st, plens = _stack_blocks(
         [payload, rng.integers(0, 256, 700, dtype=np.uint8)], minimum=1024)
     counts = np.array([count, 1 << 20], np.int32)
-    pc32, ls, ncodes = decode.rank_tables32(
-        decode.decode_tables_batch(tables.lens, tables.vals))
-    planes = decode.rank_planes32(
-        decode.windows32_bytes(torch.from_numpy(st)), torch.from_numpy(pc32),
-        torch.from_numpy(ls), torch.from_numpy(ncodes))
+    tabs = _k5_tables(tables)
+    planes = decode.rank_planes32(torch.from_numpy(st),
+                                  torch.from_numpy(plens), *tabs)
     pn = planes.numpy()
     assert _match_pallas(planes, ((pn >> 8) & 63).astype(np.int8),
                          (pn & 255).astype(np.uint8).view(np.int8), plens,
                          counts) == [False, True]
     out, _ = decode.decode_batch32(
-        torch.from_numpy(st), torch.from_numpy(plens), torch.from_numpy(pc32),
-        torch.from_numpy(ls), torch.from_numpy(ncodes),
+        torch.from_numpy(st), torch.from_numpy(plens), *tabs,
         torch.from_numpy(counts), _bucket(count))
     want = oracle.unpack(payload.tobytes(), table.row_strings(0), count)
     np.testing.assert_array_equal(out[0, :count].numpy(), want)
@@ -192,8 +282,7 @@ def test_fsm32_packs_at_tile_edges_match_pallas(case):
 def test_decode_batch32_matches_oracle(batch):
     out, under = decode.decode_batch32(
         torch.from_numpy(batch["st"]), torch.from_numpy(batch["plens"]),
-        *map(torch.from_numpy, batch["tabs"]),
-        torch.from_numpy(batch["counts"]),
+        *batch["tabs"], torch.from_numpy(batch["counts"]),
         _bucket(int(batch["counts"].max())))
     assert under.tolist() == [False, True, False]
     for i in (0, 2):
@@ -219,13 +308,9 @@ def test_decode_with_32_bit_codes_matches_oracle():
     payload = oracle.pack(blk, tables.lens[0], tables.vals[0])
     st, plens = _stack_blocks([np.frombuffer(payload, np.uint8)],
                               minimum=1024)
-    pc32, ls, ncodes = decode.rank_tables32(
-        decode.decode_tables_batch(tables.lens, tables.vals))
     out, under = decode.decode_batch32(
-        torch.from_numpy(st), torch.from_numpy(plens),
-        torch.from_numpy(pc32), torch.from_numpy(ls),
-        torch.from_numpy(ncodes), torch.tensor([blk.size], dtype=torch.int32),
-        _bucket(blk.size))
+        torch.from_numpy(st), torch.from_numpy(plens), *_k5_tables(tables),
+        torch.tensor([blk.size], dtype=torch.int32), _bucket(blk.size))
     assert not under.any()
     want = oracle.unpack(payload, tables.row_strings(0), blk.size)
     np.testing.assert_array_equal(want, blk)

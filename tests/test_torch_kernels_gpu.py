@@ -226,6 +226,24 @@ def _canonical(lens_list):
     return codes_mod.CodeTables(lens, vals)
 
 
+def _k5_tables(tables):
+    """K5's tables of a CodeTables batch as numpy arrays: pc32, ls, ncodes
+    and the 12-bit table."""
+    tabs = decode.rank_tables32(decode.decode_tables_batch(tables.lens,
+                                                           tables.vals))
+    return [*tabs, decode.rank_lut12_32(*tabs)]
+
+
+def _assert_equal_below_payload(got, want, plens):
+    """K5's planes agree at every lane below each row's payload length (the
+    kernel leaves the others unspecified)."""
+    b = len(plens)
+    p = want.shape[1] // b
+    below = torch.from_numpy(np.arange(p)[None, :] < np.asarray(plens)[:, None])
+    for g, w in zip(got.reshape(8, b, p), want.reshape(8, b, p)):
+        assert torch.equal(g.cpu()[below], w.cpu()[below])
+
+
 @pytest.mark.parametrize("kind", ["text", "canonical_32_ragged"])
 def test_rank32_and_fsm32(cuda, kind):
     rng = np.random.default_rng(len(kind))
@@ -248,12 +266,9 @@ def test_rank32_and_fsm32(cuda, kind):
         payloads[1] = payloads[1][: len(payloads[1]) // 2]
     st, plens = _stack_blocks([np.frombuffer(p, np.uint8) for p in payloads],
                               minimum=1024)
-    pc32, ls, ncodes = decode.rank_tables32(
-        decode.decode_tables_batch(tables.lens, tables.vals))
-    w32 = decode.windows32_bytes(torch.from_numpy(st)).numpy()
-    planes_want, planes_got = _both(decode.rank_planes32, w32, pc32, ls,
-                                    ncodes)
-    assert torch.equal(planes_got.cpu(), planes_want)
+    tabs = _k5_tables(tables)
+    planes_want, planes_got = _both(decode.rank_planes32, st, plens, *tabs)
+    _assert_equal_below_payload(planes_got.cpu(), planes_want, plens)
     want, got = _both(decode.fsm32_packs, planes_want.numpy(), plens, counts)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
@@ -262,8 +277,8 @@ def test_rank32_and_fsm32(cuda, kind):
     assert under == ([False] * 3 if kind == "text" else [False, True, False])
     out_p = _bucket(int(counts.max()))
     dec, dec_under = decode.decode_batch32(
-        *[torch.from_numpy(a).cuda() for a in (st, plens, pc32, ls, ncodes,
-                                                counts)], out_p)
+        *[torch.from_numpy(a).cuda() for a in (st, plens, *tabs, counts)],
+        out_p)
     assert dec_under.cpu().tolist() == under
     for i, n in enumerate(counts):
         if not under[i]:
@@ -283,14 +298,11 @@ def test_fsm32_repeated_on_rows_of_many_lengths(cuda):
     plens = np.array([p, 977 * tile, 123_457, 1], np.int32)
     st = rng.integers(0, 256, (4, p), dtype=np.uint8)
     st[3, 0] = 0  # eight 1-bit codes, two of them kept
-    wide = _canonical(list(range(1, 32)) + [32, 32])
-    pc32, ls, ncodes = (torch.from_numpy(a).cuda() for a in
-                        decode.rank_tables32(decode.decode_tables_batch(
-                            np.repeat(wide.lens, 4, 0),
-                            np.repeat(wide.vals, 4, 0))))
-    planes = decode.rank_planes32(
-        decode.windows32_bytes(torch.from_numpy(st).cuda()), pc32, ls, ncodes)
+    wide = _complete_rows(list(range(1, 32)) + [32, 32], 4)
     pl = torch.from_numpy(plens).cuda()
+    planes = decode.rank_planes32(
+        torch.from_numpy(st).cuda(), pl,
+        *[torch.from_numpy(a).cuda() for a in _k5_tables(wide)])
     cnt = torch.tensor([10_000_000, 2 ** 31 - 1, 3 * 123_457, 2],
                        dtype=torch.int32, device=cuda)
     want = decode.fsm32_packs_plain(planes, pl, cnt)
@@ -379,6 +391,109 @@ def test_rank_and_fsm_decode_reject_widths_they_do_not_take(cuda):
     planes = torch.zeros((8, 1024), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="multiple"):
         decode.decode_rows(planes, one, one, 16, 258)
+
+
+def _emit_edge_case(variant, aligned, tile):
+    """K1's edge rows (six rows of P lanes, P a multiple of 16 or not): a
+    1-lane row, rows that end on a tile boundary and one lane past it, a
+    row whose tiles 2-40 hold only 0-bit lanes (they publish 0 to the
+    look-back), a row of 32-bit payloads after one 5-bit lane (each
+    straddles two words), a row of 123,457 lanes. Rows start at word
+    offsets that are not 16-byte aligned, and the buffer ends inside the
+    last row. Returns (wrapper arguments, the wrapper)."""
+    rng = np.random.default_rng(7 if aligned else 8)
+    b, p = 6, 48 * tile + (0 if aligned else 3)
+    row_lens = np.array([1, 16 * tile, 16 * tile + 1, p, p, 123_457],
+                        np.int32)
+    if variant == "bits":
+        vals, lens = _payloads(rng, b, p)
+        lens[3, 2 * tile:41 * tile] = 0
+        lens[4] = 32
+        lens[4, 0] = 5
+    else:
+        x = rng.integers(1, 256, (b, p), dtype=np.uint8)
+        x[3, 2 * tile:41 * tile] = 0
+        x[4, 0], x[4, 1:] = 1, 255
+        lut_len = rng.integers(1, 33, (b, 256)).astype(np.int32)
+        lut_len[:, 0] = 0
+        lut_len[4, 1], lut_len[4, 255] = 5, 32
+        lut_val = rng.integers(0, 1 << 32, (b, 256),
+                               dtype=np.uint64).astype(np.uint32).view(np.int32)
+        lens = np.take_along_axis(lut_len, x.astype(np.int64), 1)
+    words = [(int(lens[r, :n].sum()) + 31) // 32
+             for r, n in enumerate(row_lens)]
+    woff = np.cumsum([0] + [w + 3 for w in words[:-1]]) + 1
+    out_words = int(woff[-1]) + words[-1] // 2
+    woff = woff.astype(np.int32)
+    if variant == "bits":
+        return ((vals, lens, row_lens, woff),
+                lambda *a: emit.emit_bits(*a, out_words))
+    return ((x, row_lens, lut_len, lut_val, woff),
+            lambda *a: emit.emit_coded(*a, out_words))
+
+
+@pytest.mark.parametrize("variant", ["bits", "coded"])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_emit_repeated_on_edge_rows(cuda, variant, aligned):
+    """K1 20 times in a row against its plain version on its edge rows
+    (int4 loads where P is a multiple of 16, lane by lane where it is not).
+    A look-back that reads a neighbour's bit count too early, or an edge
+    word that two tiles share, shows only in some runs."""
+    tile = _build.library().shafa_emit_tile_lanes()
+    args, fn = _emit_edge_case(variant, aligned, tile)
+    want = fn(*[torch.from_numpy(a) for a in args])
+    on_card = [torch.from_numpy(a).cuda() for a in args]
+    name = "emit_bits" if variant == "bits" else "emit_coded"
+    before = _build.launches[name]
+    for _ in range(20):
+        assert torch.equal(fn(*on_card).cpu(), want)
+    assert _build.launches[name] == before + 20
+
+
+def test_rank32_on_rows_that_end_at_tile_edges(cuda):
+    """K5 against its plain version below each row's payload: rows that
+    fill P, end inside a tile, on a tile boundary and one byte past it
+    and a 1-byte row, random payload bytes under a complete 1-32-bit
+    code."""
+    rng = np.random.default_rng(50)
+    p, tile = 1 << 16, _build.library().shafa_rank32_tile_bytes()
+    plens = np.array([p, 3 * tile + 100, 2 * tile, 2 * tile + 1, 1],
+                     np.int32)
+    st = rng.integers(0, 256, (5, p), dtype=np.uint8)
+    tabs = _k5_tables(_complete_rows(list(range(1, 32)) + [32, 32], 5))
+    want, got = _both(decode.rank_planes32, st, plens, *tabs)
+    _assert_equal_below_payload(got, want, plens)
+
+
+def test_rank32_and_decode_on_26_to_32_bit_codes(cuda):
+    """K5 against its plain version, and K5 -> K6 -> K1 against the NumPy
+    oracle, on a complete code whose symbols mostly have 26-32-bit codes:
+    the window at bit 8j+s needs byte j+4."""
+    rng = np.random.default_rng(32)
+    tables = _complete_rows(list(range(1, 32)) + [32, 32], 1)
+    blk = rng.integers(25, 33, 100_000).astype(np.uint8)
+    payload = oracle.pack(blk, tables.lens[0], tables.vals[0])
+    st, plens = _stack_blocks([np.frombuffer(payload, np.uint8)],
+                              minimum=1024)
+    tabs = _k5_tables(tables)
+    want, got = _both(decode.rank_planes32, st, plens, *tabs)
+    _assert_equal_below_payload(got, want, plens)
+    dec, under = decode.decode_batch32(
+        *[torch.from_numpy(a).cuda() for a in (st, plens, *tabs)],
+        torch.tensor([blk.size], dtype=torch.int32, device=cuda),
+        _bucket(blk.size))
+    assert not under.any()
+    assert np.array_equal(dec[0, :blk.size].cpu().numpy(), blk)
+
+
+def test_rank32_rejects_widths_not_a_multiple_of_16(cuda):
+    """K5 reads a tile's bytes as int4."""
+    tabs = [torch.from_numpy(a).cuda() for a in
+            _k5_tables(_complete_rows([1, 1], 1))]
+    with pytest.raises(ValueError, match="multiple of 16"):
+        decode.rank_planes32(
+            torch.zeros((1, 1032), dtype=torch.uint8, device=cuda),
+            torch.ones(1, dtype=torch.int32, device=cuda), *tabs)
 
 
 def test_fsm32_rejects_widths_not_a_multiple_of_8(cuda):
