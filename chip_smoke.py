@@ -5,34 +5,40 @@
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. the build of the CUDA kernels from shafa_tpu_torch/kernels/csrc/, and
-     K1's, K2's, K3's, K5's and K6's registers and spills per kernel as
-     ``nvcc -Xptxas -v`` gave them;
+     every kernel's registers and spills as ``nvcc -Xptxas -v`` gave them;
   3. every kernel of the paths against its plain PyTorch version on the
      card, on the paths' shapes, exact equality, both timed with CUDA
-     events: K1-K4 and K7 on the 200 MB mixed corpus's batches (K7 on the
-     planes K3 takes; then K2 -> K7 -> K1 must give K3's rows; K1's time
+     events: K1-K4 and K7 on the 200 MB mixed corpus's batches (K4 from
+     the decode batch's RLE rows, its three launches timed together
+     without the sizes' download, its plain version the token scan of
+     rle_expand_prep and expand_tokens_plain; K7's interleaved packs on the
+     planes K3 takes, then K2 -> K7 -> K1 must give K3's rows; K1's time
      beside that of its output's memset alone), K5 (below each row's
-     payload, where its planes are specified) and K6 (its interleaved (B,
-     2P) vals and lens and its underrun flags) on the (4, 8 MiB) decode
-     batch of the 200 MB text corpus; beside each, the least time the card
-     could take (bytes over 3.35 TB/s) and, for K4,
-     torch.repeat_interleave, the one PyTorch call that computes the same;
+     payload, where its planes are specified), K6 (its interleaved (B, 2P)
+     vals and lens and its underrun flags) and K4 (untimed) on the (4, 8
+     MiB) decode batch of the 200 MB text corpus; beside each, the least
+     time the card could take (bytes over 3.35 TB/s) and, for K4,
+     torch.repeat_interleave, the one PyTorch call that computes the
+     expansion from the token fields;
   4. K5 and the whole 17-32-bit decode chain on a hand-built complete table
      with codes of 26-32 bits against the NumPy oracle (the case of the JAX
-     kernel's window fault); K2 once and K3 20 times, at 8 and 16 states,
-     against their plain versions on rows at the edges of K3's look-back
-     and output words (a full row cut by its count, a row that ends on a
-     tile boundary and underruns past the row width, 123,457 bytes, 1
-     byte); K1, each variant 20 times, on rows at the edges of its tiles
-     and look-back (1 lane, a tile boundary and one lane past it, spans of
-     0-bit lanes, 32-bit payloads straddling words; P a multiple of 16 and
-     not), and K5 on rows that end on and just past a tile;
+     kernel's window fault); K2 once, K3 and K7 20 times each, at 8 and 16
+     states, against their plain versions on rows at the edges of the
+     look-back and K3's output words (a full row cut by its count, a row
+     that ends on a tile boundary and underruns past the row width,
+     123,457 bytes, 1 byte); K1, each variant 20 times, on rows at the
+     edges of its tiles and look-back (1 lane, a tile boundary and one
+     lane past it, spans of 0-bit lanes, 32-bit payloads straddling words;
+     P a multiple of 16 and not), K5 on rows that end on and just past a
+     tile, and K4 5 times on its edge rows (k4_edge_rows);
   5. two main paths through ``shafa_tpu_torch.cli.main([path, "-b", "m"])``
      and back from their .rle.shaf, each bit-exact, with the launch counts
      set to 0 before and read after: the 200,000,000-byte mixed corpus
      (codes of at most 16 bits: K1-K4) and the 200,000,000-byte text corpus
      with rare bytes (every block with codes of 17-32 bits: K1, K5, K6,
-     K4); no block decoded on the host on either;
+     K4); no block decoded on the host on either, and neither
+     rle.token_starts nor decode.interleave_packs runs (each is replaced
+     by a function that raises);
   6. the decode-stage path: ``shafa_tpu_torch.bench_decode_stages.main``
      at its defaults (64 MiB of the synthetic corpus in 8 MiB blocks; K2,
      K7, K1, K3, K4 and its own checks), launch counts read around it;
@@ -89,10 +95,12 @@ SOURCES = {
 
 #: Kernels each main path must launch.
 PATH_KERNELS = {
-    "mixed": ("emit_bits", "emit_coded", "rank", "fsm_decode", "expand"),
-    "text": ("emit_bits", "emit_coded", "rank32", "fsm32", "expand"),
-    "decode_stages": ("fsm_packs", "rank", "fsm_decode", "expand",
-                      "emit_bits"),
+    "mixed": ("emit_bits", "emit_coded", "rank", "fsm_decode",
+              "expand_sizes", "expand"),
+    "text": ("emit_bits", "emit_coded", "rank32", "fsm32", "expand_sizes",
+             "expand"),
+    "decode_stages": ("fsm_packs", "rank", "fsm_decode", "expand_sizes",
+                      "expand", "emit_bits"),
 }
 
 
@@ -258,25 +266,28 @@ def kernel_phase(data: bytes, dev) -> list[dict]:
     del rows
     print(f"K2 -> K7 -> K1 gives K3's rows on the mixed corpus's (4, 8 MiB) "
           f"decode batch at {s_states} states", flush=True)
-    prep = expand.rle_expand_prep(dec, cnt)
-    total = int(prep["out_len"].sum())
+    # K4 from the decode batch's RLE rows: passes A-C (the sizes' download
+    # excluded) against the token scan and expand_tokens_plain; the bound
+    # counts the RLE bytes read once and the expanded bytes written once
+    total = k4_total(dec, cnt)
     if total != drows * BLOCK:
-        fail(f"K4 prep: {total} expanded bytes, expected {drows * BLOCK}")
-    args = (prep["cum"], prep["sym"], prep["out_base"], total)
+        fail(f"K4 sizes: {total} expanded bytes, expected {drows * BLOCK}")
     r = compare("K4 expand",
-                lambda: expand.expand_tokens(*args),
-                lambda: expand.expand_tokens_plain(*args),
-                9 * int(cnt.sum()) + nbytes(args[2]) + total,
-                lambda t: [t])
-    out = expand.expand_tokens(*args)
+                lambda: expand.rle_expand(expand.rle_expand_sizes(dec, cnt),
+                                          total),
+                lambda: k4_plain(dec, cnt, total),
+                int(cnt.sum()) + nbytes(cnt) + total, lambda t: [t])
+    out = expand.rle_expand(expand.rle_expand_sizes(dec, cnt), total)
     if out.cpu().numpy().tobytes() != data[:drows * BLOCK]:
         fail("K1 -> K4 chain does not reproduce the corpus")
     # the library call for the same expansion: per-token counts in
     # (computed beforehand), the same back-to-back bytes out
+    prep = expand.rle_expand_prep(dec, cnt)
     cnt_flat = torch.diff(prep["cum"], dim=1,
                           prepend=torch.zeros_like(prep["cum"][:, :1]))
     cnt_flat = cnt_flat.reshape(-1)
     sym_flat = prep["sym"].reshape(-1)
+    del prep
     lib = torch.repeat_interleave(sym_flat, cnt_flat, output_size=total)
     if not torch.equal(lib, out):
         fail("torch.repeat_interleave disagrees with K4")
@@ -284,8 +295,76 @@ def kernel_phase(data: bytes, dev) -> list[dict]:
     r["library_ms"] = timed_ms(
         lambda: torch.repeat_interleave(sym_flat, cnt_flat,
                                         output_size=total), 5)
-    results.append(dict(name="expand", shape=list(prep["cum"].shape), **r))
+    results.append(dict(name="expand", shape=list(dec.shape), **r))
     return results
+
+
+def k4_total(x, lengths) -> int:
+    """The rows' expanded bytes in all, from K4's sizes, checked against
+    the plain version's."""
+    import torch
+    from shafa_tpu_torch.kernels import expand
+    sizes = expand.rle_expand_sizes(x, lengths)["out_len"]
+    plain = expand.rle_expand_prep(x, lengths)["out_len"]
+    if not torch.equal(sizes, plain):
+        fail(f"K4 sizes {sizes.tolist()} differ from the plain version's "
+             f"{plain.tolist()}")
+    return int(sizes.sum())
+
+
+def k4_plain(x, lengths, total: int):
+    """K4's plain version: the token scan, then expand_tokens_plain."""
+    from shafa_tpu_torch.kernels import expand
+    prep = expand.rle_expand_prep(x, lengths)
+    return expand.expand_tokens_plain(prep["cum"], prep["sym"],
+                                      prep["out_base"], total)
+
+
+def k4_edge_rows(tile: int, seed: int) -> list[np.ndarray]:
+    """K4's edge rows for tiles of `tile` RLE bytes: escapes that start at
+    the last three bytes of tiles 1, 2 and 3, then literals and escapes of
+    count 0, 255 or any, cut inside a triple; a row that ends on a lone
+    0x00; an all-escape row of count 255, whose output spans about 85
+    tiles' input a tile; rows of 0, 1, 2 and 3 bytes (a truncated triple,
+    an escape of count 0); a last row of literals that makes the batch's
+    total not a multiple of 16."""
+    import torch
+    from shafa_tpu_torch.device import _stack_blocks
+    from shafa_tpu_torch.kernels import expand
+    rng = np.random.default_rng(seed)
+
+    def literals(n):
+        return rng.integers(1, 256, n).astype(np.uint8)
+
+    def escape(count):
+        return np.array([0, rng.integers(0, 256), count], np.uint8)
+
+    def stream(n):
+        parts, size = [], 0
+        while size < n:
+            if rng.random() < 0.4:
+                part = escape(int(rng.choice([0, 255, rng.integers(0, 256)])))
+            else:
+                part = literals(int(rng.integers(1, 8)))
+            parts.append(part)
+            size += part.size
+        return np.concatenate(parts)
+
+    edge, size = [], 0
+    for k, d in ((1, 3), (2, 2), (3, 1)):  # escape at byte k * tile - d
+        edge += [literals(k * tile - d - size), escape(int(rng.integers(256)))]
+        size = k * tile - d + 3
+    edge += [stream(2 * tile), np.array([0, 7], np.uint8)]
+    rows = [np.concatenate(edge), np.zeros(0, np.uint8),
+            np.array([65], np.uint8), np.array([0, 66], np.uint8),
+            np.concatenate([stream(5 * tile), np.zeros(1, np.uint8)]),
+            np.array([0, 67, 0], np.uint8),
+            np.tile(np.array([0, 9, 255], np.uint8), 3 * tile)]
+    x, lens = _stack_blocks(rows)
+    total = int(expand.rle_expand_prep(torch.from_numpy(x),
+                                       torch.from_numpy(lens))["out_len"].sum())
+    rows.append(literals(1 if (total + 1) % 16 else 2))
+    return rows
 
 
 def k5_tables(tables, dev) -> list:
@@ -322,7 +401,7 @@ def kernel32_phase(text: bytes, dev) -> list[dict]:
     main path packs them, in one (4, 8 MiB) batch."""
     import torch
     from shafa_tpu_torch.device import _bucket, _stack_blocks
-    from shafa_tpu_torch.kernels import decode
+    from shafa_tpu_torch.kernels import decode, expand
 
     drows = 4
     _, _, enc, enc_len, tables, payloads, _ = encode_on_card(text, dev,
@@ -358,9 +437,14 @@ def kernel32_phase(text: bytes, dev) -> list[dict]:
     for i, n in enumerate(counts_np):
         if not torch.equal(dec[i, :n], enc[i, :n]):
             fail(f"K5 -> K6 -> K1 does not give row {i}'s RLE stream")
+    total = k4_total(dec, cnt)
+    if not torch.equal(expand.rle_expand(expand.rle_expand_sizes(dec, cnt),
+                                         total), k4_plain(dec, cnt, total)):
+        fail("K4 differs from its plain version on the text decode batch")
     print(f"text corpus decode batch: codes up to {maxlen} bits, "
           f"{int((tables.lens > 16).sum(axis=1).max())} symbols of a row "
-          "over 16 bits", flush=True)
+          f"over 16 bits; K4 exact vs plain on its {total} bytes",
+          flush=True)
     return results
 
 
@@ -417,13 +501,13 @@ def fault_phase(dev) -> None:
 
 
 def edge_phase(dev) -> None:
-    """K2 once and K3 20 times against their plain versions on a (4, 4
-    MiB) batch of random payload bytes under a complete code (1-16 bits at
-    16 states, all 8 bits at 8): a full row cut by its count inside a tile,
-    a row that ends on a tile boundary and underruns (its symbols pass the
-    row width, where K3 drops them), a row of 123,457 bytes, a row of 1
-    byte. A look-back that reads a neighbour's count too early, or an edge
-    word two tiles share, shows only in some runs."""
+    """K2 once, K3 and K7 20 times each against their plain versions on a
+    (4, 4 MiB) batch of random payload bytes under a complete code (1-16
+    bits at 16 states, all 8 bits at 8): a full row cut by its count inside
+    a tile, a row that ends on a tile boundary and underruns (its symbols
+    pass the row width, where K3 drops them), a row of 123,457 bytes, a row
+    of 1 byte. A look-back that reads a neighbour's count too early, or an
+    edge word two tiles share, shows only in some runs."""
     import torch
     from shafa_tpu_torch.device import tables_to_device
     from shafa_tpu_torch.kernels import _build, decode
@@ -459,10 +543,39 @@ def edge_phase(dev) -> None:
                     and torch.equal(got[1], want[1])):
                 fail(f"K3 differs from its plain version on the edge rows "
                      f"at {s_states} states")
+        del want, got
+        want = decode.fsm_packs_plain(planes, pl, cnt, s_states)
+        for _ in range(20):
+            got = decode.fsm_packs(planes, pl, cnt, s_states)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                fail(f"K7 differs from its plain version on the edge rows "
+                     f"at {s_states} states")
         del planes, want, got
         torch.cuda.empty_cache()
-    print("edge rows (4, 4 MiB): K2 exact vs plain, K3 exact vs plain in 20 "
-          "runs each at 8 and 16 states", flush=True)
+    print("edge rows (4, 4 MiB): K2 exact vs plain, K3 and K7 exact vs plain "
+          "in 20 runs each at 8 and 16 states", flush=True)
+
+
+def k4_edge_phase(dev) -> None:
+    """K4 5 times against its plain version on its edge rows
+    (k4_edge_rows)."""
+    import torch
+    from shafa_tpu_torch.device import _stack_blocks
+    from shafa_tpu_torch.kernels import _build, expand
+
+    rows = k4_edge_rows(_build.library().shafa_expand_tile_bytes(), SEED + 9)
+    st, lens = _stack_blocks(rows)
+    x, ln = torch_from(st, dev), torch_from(lens, dev)
+    total = k4_total(x, ln)
+    if total % 16 == 0:
+        fail(f"K4 edge rows: {total} expanded bytes, a multiple of 16")
+    want = k4_plain(x, ln, total)
+    for _ in range(5):
+        if not torch.equal(expand.rle_expand(expand.rle_expand_sizes(x, ln),
+                                             total), want):
+            fail("K4 differs from its plain version on its edge rows")
+    print(f"K4 edge rows ({len(rows)} rows of {lens.tolist()} RLE bytes, "
+          f"{total} bytes expanded): exact vs plain in 5 runs", flush=True)
 
 
 def emit_edge_case(variant: str, aligned: bool, tile: int, dev):
@@ -553,13 +666,32 @@ def run_cli(argv: list[str], log) -> None:
         fail(f"shafa_tpu_torch {' '.join(argv)} exited {rc}")
 
 
+@contextlib.contextmanager
+def refused(*targets):
+    """Each (module, name) replaced by a function that raises while the
+    block runs: a plain stage that must not run on a path."""
+    saved = [(m, n, getattr(m, n)) for m, n in targets]
+
+    def refuse(name):
+        def call(*args, **kwargs):
+            raise AssertionError(f"{name} ran on a CLI path")
+        return call
+    for m, n, _ in saved:
+        setattr(m, n, refuse(n))
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
 def main_path(work: str, name: str, data: bytes) -> dict:
     """A round trip at -b m through the CLI entry point, with the launch
     counts read around it."""
     import torch
     from shafa_tpu_torch import formats
     from shafa_tpu_torch.device import TorchBackend
-    from shafa_tpu_torch.kernels import _build
+    from shafa_tpu_torch.kernels import _build, decode, rle
 
     path = os.path.join(work, f"{name}.bin")
     with open(path, "wb") as fp:
@@ -568,15 +700,17 @@ def main_path(work: str, name: str, data: bytes) -> dict:
     _build.reset_launches()
     TorchBackend.host_decoded_blocks = 0
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run_cli([path, "-b", "m"], log)
-    t1 = time.perf_counter()
-    if not os.path.isfile(path + ".rle.shaf"):
-        fail(f"{name}: compress did not take the R mode (.rle.shaf missing)")
-    os.rename(path, path + ".orig")
-    t2 = time.perf_counter()
-    run_cli([path + ".rle.shaf"], log)
-    t3 = time.perf_counter()
+    with refused((rle, "token_starts"), (decode, "interleave_packs")):
+        t0 = time.perf_counter()
+        run_cli([path, "-b", "m"], log)
+        t1 = time.perf_counter()
+        if not os.path.isfile(path + ".rle.shaf"):
+            fail(f"{name}: compress did not take the R mode (.rle.shaf "
+                 "missing)")
+        os.rename(path, path + ".orig")
+        t2 = time.perf_counter()
+        run_cli([path + ".rle.shaf"], log)
+        t3 = time.perf_counter()
     launches = dict(_build.launches)
     with open(path, "rb") as fp:
         if fp.read() != data:
@@ -683,7 +817,9 @@ def main() -> int:
           f"(nvcc {_build.build_seconds:.2f} s, one process per source)",
           flush=True)
     for label, prefix in (("K1", "emit_tiles"), ("K2", "rank_lut"),
-                          ("K3", "fsm16_"), ("K5", "rank32_"),
+                          ("K3 and K7 (passes A and B shared; last pass "
+                           "<0> K3's, <1> K7's)", "fsm16_"),
+                          ("K4", "expand_"), ("K5", "rank32_"),
                           ("K6", "fsm32_")):
         res = _build.resources(prefix)
         if not res:
@@ -711,6 +847,7 @@ def main() -> int:
     fault_phase(dev)
     edge_phase(dev)
     k1_k5_edge_phase(dev)
+    k4_edge_phase(dev)
     torch.cuda.empty_cache()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -728,7 +865,8 @@ def main() -> int:
                   f"{res['blocks']} blocks with longest codes of "
                   f"{res['maxlen'][0]}-{res['maxlen'][1]} bits, round trip "
                   f"bit-exact, launches {res['launches']}, host-decoded "
-                  "blocks 0", flush=True)
+                  "blocks 0, rle.token_starts and decode.interleave_packs "
+                  "never ran", flush=True)
         if not 16 < runs["text"]["maxlen"][0] <= runs["text"]["maxlen"][1] \
                 <= 32:
             fail(f"text: longest codes {runs['text']['maxlen']}, not all "

@@ -19,20 +19,22 @@ the bytes the original counts for that stage (packed payload, RLE stream
 or expanded bytes). The stages carry their counterparts' names:
 
   rank_planes (K2, which reads the payload bytes: the original's
-      windows32 stage has no counterpart), fsm_v4 (K7), emit_packs (K1 on
-      K7's packs) when the longest code has at most 16 bits;
+      windows32 stage has no counterpart), fsm_v4 (K7, whose packs come
+      interleaved as K1 reads them), emit_packs (K1 on K7's packs) when the
+      longest code has at most 16 bits;
   fused v5 chain: K2, K3, the route of _decode_fused_tpu;
-  expand_sizes: the token scan of rle_expand_prep;
-  expand (K4), which writes the compacted output: the counterpart of both
-      expand_pages and expand_compact.
+  expand_sizes: K4's passes A and B (the token scan and the sizes), the
+      counterpart of rle_expand_sizes;
+  expand (K4): its pass C, which writes the compacted output: the
+      counterpart of both expand_pages and expand_compact.
 
 SHAFA_BENCH_V3 (default off) times K6 at 32 states on K2's planes, the
 second half of the original's legacy branch, whose XLA stage 1 has no
 counterpart. SHAFA_BENCH_XLA_EXPAND has no counterpart. Checks, each
 making main() return 1: K7 -> emit_packs gives K3's rows and underrun
-flags (and, with SHAFA_BENCH_V3, K6 gives K7's packs as interleave_packs
-lays them out); K4 gives its plain version's bytes; the expanded bytes
-equal the corpus.
+flags (and, with SHAFA_BENCH_V3, K6 gives K7's packs); K4 gives its plain
+version's bytes (rle_expand_prep's token scan, then expand_tokens_plain);
+the expanded bytes equal the corpus.
 """
 
 from __future__ import annotations
@@ -176,17 +178,15 @@ def main(argv: list[str] | None = None) -> int:
                    dev)
             _check("K6 gives K7's packs", all(
                 torch.equal(a, b) for a, b in
-                zip(kdecode.fsm32_packs(ls8, pl, cts),
-                    (*kdecode.interleave_packs(*packs[:4]), packs[4]))),
-                failed)
+                zip(kdecode.fsm32_packs(ls8, pl, cts), packs)), failed)
         del ls8
         timeit("emit_packs (K1)",
-               lambda: kdecode.emit_packs(*packs[:4], pl, stride_words),
+               lambda: kdecode.emit_packs(*packs[:2], pl, stride_words),
                enc_bytes, reps, dev)
-        rows = kdecode.emit_packs(*packs[:4], pl, stride_words)
+        rows = kdecode.emit_packs(*packs[:2], pl, stride_words)
         _check("K7 -> emit_packs gives K3's rows",
                torch.equal(rows[:, :out_p], dec)
-               and torch.equal(packs[4], under), failed)
+               and torch.equal(packs[2], under), failed)
         del packs, rows
         # bench_decode_stages.py:179 labels this stage "fused v4 chain",
         # though _decode_fused_tpu runs the v5 kernel (K3)
@@ -195,17 +195,19 @@ def main(argv: list[str] | None = None) -> int:
         print(f"v4 chain stages skipped: longest code {max_len} bits > 16",
               flush=True)
 
-    timeit("expand_sizes", lambda: kexpand.rle_expand_prep(dec, cts),
+    timeit("expand_sizes", lambda: kexpand.rle_expand_sizes(dec, cts),
            enc_bytes, reps, dev)
-    prep = kexpand.rle_expand_prep(dec, cts)
-    total = int(prep["out_len"].sum())
+    sizes = kexpand.rle_expand_sizes(dec, cts)
+    total = int(sizes["out_len"].sum())
     print(f"expanded: {total / 1e6:.1f} MB", flush=True)
-    timeit("expand (K4)", lambda: kexpand.rle_expand_compact(prep, total),
+    timeit("expand (K4)", lambda: kexpand.rle_expand(sizes, total),
            total, reps, dev)
-    out = kexpand.rle_expand_compact(prep, total)
+    out = kexpand.rle_expand(sizes, total)
+    prep = kexpand.rle_expand_prep(dec, cts)
     _check("K4 gives its plain version's bytes", torch.equal(
         out, kexpand.expand_tokens_plain(prep["cum"], prep["sym"],
                                          prep["out_base"], total)), failed)
+    del prep
     _check("the expanded bytes equal the corpus",
            out.cpu().numpy().tobytes() == raw.tobytes(), failed)
     if os.environ.get("SHAFA_BENCH_XLA_EXPAND", "0") != "0":

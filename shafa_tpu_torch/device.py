@@ -286,10 +286,11 @@ class TorchBackend:
                 for w, n in zip(woff, byte_lens)]
 
     def _expand_rows(self, x, lengths, n: int) -> list[np.ndarray]:
-        """RLE-expand the first n rows of a device batch to host arrays."""
-        prep = kexpand.rle_expand_prep(x, lengths)
-        sizes = prep["out_len"].cpu().numpy()[:n]
-        flat = kexpand.rle_expand_compact(prep, int(sizes.sum()))
+        """RLE-expand the first n rows of a device batch to host arrays:
+        K4's sizes, their download, then K4's expansion of those n rows."""
+        dev_sizes = kexpand.rle_expand_sizes(x, lengths)
+        sizes = dev_sizes["out_len"].cpu().numpy()[:n]
+        flat = kexpand.rle_expand(dev_sizes, int(sizes.sum()))
         return _split_rows(flat.cpu().numpy(), sizes)
 
     # -- fused device-resident tier (pipeline fast path) ---------------------

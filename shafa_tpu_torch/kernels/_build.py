@@ -30,7 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 #: Launches per kernel: each wrapper adds one where it launches its kernel.
 launches = {"emit_bits": 0, "emit_coded": 0, "rank": 0, "fsm_decode": 0,
-            "expand": 0, "rank32": 0, "fsm32": 0, "fsm_packs": 0}
+            "expand_sizes": 0, "expand": 0, "rank32": 0, "fsm32": 0,
+            "fsm_packs": 0}
 
 #: Seconds the last build took (0.0 when the library was already built).
 build_seconds = 0.0
@@ -45,10 +46,10 @@ _SIGNATURES = {
     "shafa_rank_planes": [_P, _P, _P, _P, _I, _L, _P, _P],
     "shafa_fsm_decode_tile_bytes": [],
     "shafa_fsm_decode": [_P, _P, _P, _I, _I, _L, _P, _P, _P, _P, _L, _P, _P],
-    "shafa_fsm_packs_tile_bytes": [],
-    "shafa_fsm_packs": [_P, _P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P],
-    "shafa_expand": [_P, _P, _P, _I, _L, _P, _L, _P],
+    "shafa_fsm_packs": [_P, _P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _P, _P],
+    "shafa_expand_tile_bytes": [],
+    "shafa_expand_sizes": [_P, _P, _I, _L, _P, _P, _P, _P, _P, _P],
+    "shafa_expand": [_P, _P, _I, _L, _P, _P, _P, _P, _L, _P],
     "shafa_rank32_tile_bytes": [],
     "shafa_rank_planes32": [_P, _P, _P, _P, _P, _P, _I, _L, _P, _P],
     "shafa_fsm32_tile_bytes": [],

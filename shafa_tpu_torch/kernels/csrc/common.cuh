@@ -18,9 +18,3 @@
 __device__ __forceinline__ uint32_t shafa_bswap32(uint32_t x) {
   return __byte_perm(x, 0, 0x0123);
 }
-
-// Per-row exclusive scan of an int64 (rows, cols) matrix (scan.cu). Row r's
-// total goes to totals[r] when totals is not null. One block per row.
-int shafa_row_exclusive_scan(const long long* in, long long* out,
-                             long long* totals, int rows, int cols,
-                             cudaStream_t stream);

@@ -12,28 +12,34 @@
 // From its entry state a byte replays at most 8 ordered symbols, clipped at
 // out_counts; a row whose payload holds fewer symbols than its count
 // underruns. K3 writes the symbols straight into the row. K7 writes them as
-// two packs per byte (val1: the first four, val2: the rest, MSB first;
-// len1 / len2 their bits), which K1's bits variant concatenates; lanes past
-// the row's payload get zero packs.
+// two packs per byte (the first four symbols, then the rest, MSB first,
+// with their bit counts), interleaved as K6 lays them out (fsm32.cu): lanes
+// 2j and 2j + 1 of (B, 2P) vals and lens, which K1's bits variant
+// concatenates into the rows; lanes past the row's payload get zero packs.
 //
 // Bound on the H100: device-memory bytes (32 B of planes per payload byte,
-// read twice by K3 and three times by K7; K7 also writes 16 B of packs) and
-// the 16-state function compositions. A function of the 16 states packs
-// into one u64, the image of state s in nibble s.
+// read twice; K7 also writes 16 B of packs) and the 16-state function
+// compositions. A function of the 16 states packs into one u64, the image
+// of state s in nibble s.
 //
-// K3's design is K6's (fsm32.cu), with 2048-byte tiles:
+// The design is K6's (fsm32.cu), with 2048-byte tiles, and K3 and K7 share
+// all of it but the last step:
 //   A  each tile composes its bytes' functions: warp reductions in lane
 //      order, then thread 0 over the warp aggregates;
 //   B  one block per row turns the tile functions into every tile's entry
 //      state (EntryStates over chunks of 4096 tiles);
 //   P  each tile turns its entry state into every byte's (EntryStates: a
 //      warp scan of functions, one thread walking the state through the
-//      warp aggregates), replays the bytes' symbols into registers, takes
-//      its first output position from a decoupled look-back over its row's
-//      earlier tiles' symbol counts (fsm_common.cuh), stages its symbols in
-//      shared memory at their offsets within the tile, and writes them out
-//      as whole words: plain stores inside its span of the zeroed row,
-//      atomicOr on the two edge words it may share with its neighbours.
+//      warp aggregates), replays the bytes' symbols into registers, and
+//      takes its first output position from a decoupled look-back over its
+//      row's earlier tiles' symbol counts (fsm_common.cuh). K3 then stages
+//      its symbols in shared memory at their offsets within the tile and
+//      writes them out as whole words: plain stores inside its span of the
+//      zeroed row, atomicOr on the two edge words it may share with its
+//      neighbours. K7 clips each byte's symbols at the count and stores the
+//      byte's two packs: a 4-byte group's 8 lanes of vals and of lens are
+//      two int4 each, passed between a warp's threads by shuffles so that
+//      each store covers 512 contiguous bytes.
 // Compositions are byte permutes: a function's nibbles index a table of 8
 // bytes per permute (compose, then_byte). Unlike K6, a thread owns two
 // groups of 4 consecutive bytes, at tile lanes 4t and 4(t + THREADS), not
@@ -41,13 +47,6 @@
 // warp's loads cover 512 contiguous bytes without staging the planes in
 // shared memory (measured faster: the 16-state functions are cheap enough
 // to scan once per group index).
-//
-// K7 keeps the passes of the first port (namespace k7): A composes each
-// 1024-byte tile's function (CUB block scan), B walks a row's tiles with one
-// warp, C stores every byte's entry state and counts each tile's symbols,
-// D (scan.cu) scans the tile counts, E' replays each byte and writes its
-// packs.
-#include <cub/block/block_reduce.cuh>
 #include <cub/block/block_scan.cuh>
 
 #include "fsm_common.cuh"
@@ -62,11 +61,7 @@ __device__ __forceinline__ int apply_fn(u64 f, int q) {
   return (int)((f >> (4 * q)) & 15);
 }
 
-// ---------------------------------------------------------------------------
-// K3
-// ---------------------------------------------------------------------------
-
-namespace k3 {
+namespace fsm16 {
 
 using shafa_fsm::Byte;
 using shafa_fsm::byte_at;
@@ -367,18 +362,69 @@ __device__ __forceinline__ void write_symbols(const uint32_t* sbuf,
   }
 }
 
-// P: every byte's entry state, replay, the look-back, the symbols below
-// min(count, out_stride) into the zeroed row, and the underrun flag,
-// written by the tile that holds the row's last payload byte (tile 0 of a
-// row without payload). The groups' entry states come from one
-// EntryStates run per group index, the state carried from one to the next.
+// The first n of four symbols, MSB first: byte k of v (symbol k) goes to
+// bits 31-8k, and the bits past the n symbols are zero.
+__device__ __forceinline__ uint32_t msb_first(uint32_t v, int n) {
+  return n > 0 ? shafa_bswap32(v) & (0xFFFFFFFFu << (32 - 8 * n)) : 0u;
+}
+
+// A warp's packs: thread t's 4-byte group has lanes 8t .. 8t + 7 of the
+// warp's 256 lanes of vals and of lens (v, l), which start at lane first of
+// the arrays: chunks 2t and 2t + 1 of the warp's 64 int4. Store s writes
+// chunk 32s + t, taken by shuffles from thread 16s + t / 2, so that each
+// store covers 512 contiguous bytes. Chunks at or past lane stop (the row's
+// end) are not written.
+__device__ __forceinline__ void store_packs(int* __restrict__ vals,
+                                            int* __restrict__ lens,
+                                            long long first, long long stop,
+                                            const int (&v)[8],
+                                            const int (&l)[8]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int src = 16 * s + (lane >> 1);
+    const int half = 4 * (lane & 1);
+    int cv[4], cl[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int v0 = __shfl_sync(0xFFFFFFFFu, v[k], src);
+      const int v1 = __shfl_sync(0xFFFFFFFFu, v[4 + k], src);
+      const int l0 = __shfl_sync(0xFFFFFFFFu, l[k], src);
+      const int l1 = __shfl_sync(0xFFFFFFFFu, l[4 + k], src);
+      cv[k] = half ? v1 : v0;
+      cl[k] = half ? l1 : l0;
+    }
+    const long long at = first + 4 * (32 * s + lane);
+    if (at < stop) {
+      *reinterpret_cast<int4*>(vals + at) =
+          make_int4(cv[0], cv[1], cv[2], cv[3]);
+      *reinterpret_cast<int4*>(lens + at) =
+          make_int4(cl[0], cl[1], cl[2], cl[3]);
+    }
+  }
+}
+
+// Where the last pass writes: K3's rows (B, stride) u8, zeroed; K7's vals
+// and lens (B, 2P) i32.
+struct Out {
+  uint8_t* rows;
+  long long stride;
+  int* vals;
+  int* lens;
+};
+
+// P: every byte's entry state, replay, the look-back, the underrun flag
+// (written by the tile that holds the row's last payload byte, or by tile 0
+// of a row without payload), then K3's symbols below min(count, stride)
+// into the zeroed row (PACKS false) or K7's packs (PACKS true; zeros past
+// the payload). The groups' entry states come from one EntryStates run per
+// group index, the state carried from one to the next.
+template <bool PACKS>
 __global__ void __launch_bounds__(THREADS)
-fsm16_tile_rows(Args a, const int* __restrict__ tile_entry,
-                u64* __restrict__ status, int* __restrict__ ticket,
-                uint8_t* __restrict__ out, long long out_stride,
+fsm16_tile_emit(Args a, const int* __restrict__ tile_entry,
+                u64* __restrict__ status, int* __restrict__ ticket, Out o,
                 int* __restrict__ under) {
   using CountScan = cub::BlockScan<int, THREADS>;
-  __shared__ uint32_t sbuf[(8 * TILE + 8) / 4];  // at most 8 symbols a byte
   __shared__ EntryStates<WARPS> es;
   __shared__ typename CountScan::TempStorage scan;
   __shared__ int tile_id;
@@ -391,8 +437,20 @@ fsm16_tile_rows(Args a, const int* __restrict__ tile_entry,
   const long long tile0 = (long long)k * TILE;
   const long long plen = a.plens[row];
   const long long count = a.counts[row];
+  // the row's lanes of vals and lens end at pack_stop; the warp's groups
+  // of index h start at lane pack_lane + 8 * THREADS * h
+  const long long pack_stop = 2 * (row * a.p + a.p);
+  const long long pack_lane =
+      2 * (row * a.p + tile0 + 4 * (threadIdx.x & ~31));
   if (tile0 >= plen) {
     if (k == 0 && threadIdx.x == 0) under[row] = count > 0 ? 1 : 0;
+    if constexpr (PACKS) {
+      const int zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+      for (int h = 0; h < GROUPS; ++h)
+        store_packs(o.vals, o.lens, pack_lane + 8 * THREADS * h, pack_stop,
+                    zero, zero);
+    }
     return;
   }
   int carry = threadIdx.x == 0 ? tile_entry[t] : 0;
@@ -443,286 +501,89 @@ fsm16_tile_rows(Args a, const int* __restrict__ tile_entry,
     }
   }
   __syncthreads();
-  // the symbols at their offsets within the tile, after before & 3 bytes,
-  // so that sbuf's words are the row's
   const long long before = tile_before;
-  uint8_t* sb = reinterpret_cast<uint8_t*>(sbuf);
+  if constexpr (PACKS) {
 #pragma unroll
-  for (int h = 0; h < GROUPS; ++h) {
-    int pos = (int)(before & 3) + excl[h];
+    for (int h = 0; h < GROUPS; ++h) {
+      long long at = before + excl[h];  // the group's first symbol
+      int v[8], l[8];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int nb = (int)((nbs[h] >> (4 * i)) & 15u);
-      for (int s = 0; s < nb; ++s)
-        sb[pos + s] = (uint8_t)((s < 4 ? sym_lo[h][i] : sym_hi[h][i]) >>
-                                (8 * (s & 3)));
-      pos += nb;
+      for (int i = 0; i < 4; ++i) {
+        const int nb = (int)((nbs[h] >> (4 * i)) & 15u);
+        const int kept = (int)min(max(count - at, 0ll), (long long)nb);
+        const int n1 = min(kept, 4);
+        const int n2 = max(kept - 4, 0);
+        v[2 * i] = (int)msb_first(sym_lo[h][i], n1);
+        v[2 * i + 1] = (int)msb_first(sym_hi[h][i], n2);
+        l[2 * i] = 8 * n1;
+        l[2 * i + 1] = 8 * n2;
+        at += nb;
+      }
+      store_packs(o.vals, o.lens, pack_lane + 8 * THREADS * h, pack_stop, v, l);
     }
-  }
-  __syncthreads();
-  const long long end = min(before + tile_cnt, min(count, out_stride));
-  if (end > before)
-    write_symbols(sbuf, reinterpret_cast<uint32_t*>(out + row * out_stride),
-                  before, end);
-}
-
-}  // namespace k3
-
-// ---------------------------------------------------------------------------
-// K7
-// ---------------------------------------------------------------------------
-
-namespace k7 {
-
-constexpr int THREADS = 256;
-constexpr int ITEMS = 4;               // consecutive payload bytes per thread
-constexpr int TILE = THREADS * ITEMS;  // payload bytes per block
-
-// "a then c": the state after a byte with function a, then one with c.
-__device__ __forceinline__ u64 compose(u64 a, u64 c) {
-  u64 r = 0;
+  } else {
+    // the symbols at their offsets within the tile, after before & 3
+    // bytes, so that sbuf's words are the row's
+    __shared__ uint32_t sbuf[(8 * TILE + 8) / 4];  // at most 8 a byte
+    uint8_t* sb = reinterpret_cast<uint8_t*>(sbuf);
 #pragma unroll
-  for (int s = 0; s < 16; ++s)
-    r |= (u64)apply_fn(c, apply_fn(a, s)) << (4 * s);
-  return r;
-}
-
-struct Compose {
-  __device__ __forceinline__ u64 operator()(u64 a, u64 c) const {
-    return compose(a, c);
-  }
-};
-
-struct Byte {
-  uint32_t lens;  // nibble b: (code length at bit b) - 1, length clipped to [1, S]
-  u64 syms;       // byte b: symbol of the code at bit b
-};
-
-__device__ __forceinline__ Byte load_byte(const int* __restrict__ ls8,
-                                          long long n, long long lane,
-                                          int s_states) {
-  Byte by{0u, 0ull};
+    for (int h = 0; h < GROUPS; ++h) {
+      int pos = (int)(before & 3) + excl[h];
 #pragma unroll
-  for (int b = 0; b < 8; ++b) {
-    const int ls = ls8[b * n + lane];
-    const int len = min(max((ls >> 8) & 31, 1), s_states);
-    by.lens |= (uint32_t)(len - 1) << (4 * b);
-    by.syms |= (u64)(ls & 255) << (8 * b);
-  }
-  return by;
-}
-
-__device__ __forceinline__ int code_len(const Byte& by, int q) {
-  return (int)((by.lens >> (4 * q)) & 15) + 1;
-}
-
-// Transition function of one byte: q < 8 -> E[q], q >= 8 -> q - 8.
-__device__ __forceinline__ u64 byte_fn(const Byte& by, int s_states) {
-  uint32_t e_packed = 0;
-#pragma unroll
-  for (int bit = 7; bit >= 0; --bit) {
-    const int nb = bit + code_len(by, bit);
-    const int e = nb >= 8 ? nb - 8 : (int)((e_packed >> (4 * nb)) & 15);
-    e_packed |= (uint32_t)min(max(e, 0), s_states - 1) << (4 * bit);
-  }
-  return ((u64)0x76543210u << 32) | e_packed;
-}
-
-// Replay of a byte entered in state q: symbol k of the byte in byte k of
-// *syms (when given), the number of symbols returned.
-__device__ __forceinline__ int replay(const Byte& by, int q, u64* syms) {
-  int n = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    if (q < 8) {
-      if (syms) *syms |= ((by.syms >> (8 * q)) & 255) << (8 * n);
-      q += code_len(by, q);
-      ++n;
+      for (int i = 0; i < 4; ++i) {
+        const int nb = (int)((nbs[h] >> (4 * i)) & 15u);
+        for (int s = 0; s < nb; ++s)
+          sb[pos + s] = (uint8_t)((s < 4 ? sym_lo[h][i] : sym_hi[h][i]) >>
+                                  (8 * (s & 3)));
+        pos += nb;
+      }
     }
-  }
-  return n;
-}
-
-struct Args {
-  const int* ls8;         // (8, B*P)
-  const int* plens;       // (B,) payload bytes per row
-  const int* counts;      // (B,) symbols to decode per row
-  int s_states;
-  long long p;            // payload bytes per row of the planes
-  long long n;            // B * P
-  int n_tiles;
-};
-
-// A: composed transition function of each tile.
-__global__ void __launch_bounds__(THREADS)
-fsm_tile_fn(Args a, u64* __restrict__ tile_fn) {
-  using Scan = cub::BlockScan<u64, THREADS>;
-  __shared__ typename Scan::TempStorage tmp;
-  const int row = blockIdx.y;
-  const long long t = (long long)row * a.n_tiles + blockIdx.x;
-  const long long tile0 = (long long)blockIdx.x * TILE;
-  if (tile0 >= a.plens[row]) {
-    if (threadIdx.x == 0) tile_fn[t] = IDENT;
-    return;
-  }
-  u64 g = IDENT;
-  for (int i = 0; i < ITEMS; ++i) {
-    const long long j = tile0 + threadIdx.x * ITEMS + i;
-    if (j < a.p)
-      g = compose(g, byte_fn(load_byte(a.ls8, a.n, row * a.p + j, a.s_states),
-                             a.s_states));
-  }
-  u64 incl, agg;
-  Scan(tmp).InclusiveScan(g, incl, Compose(), agg);
-  if (threadIdx.x == 0) tile_fn[t] = agg;
-}
-
-// B: entry state of every tile (row state starts at 0). One warp per row.
-__global__ void fsm_tile_entry(const u64* __restrict__ tile_fn,
-                               int* __restrict__ tile_entry, int n_tiles) {
-  const unsigned full = 0xFFFFFFFFu;
-  const int lane = threadIdx.x;
-  const long long row0 = (long long)blockIdx.x * n_tiles;
-  int carry = 0;
-  for (int base = 0; base < n_tiles; base += 32) {
-    const int t = base + lane;
-    u64 f = t < n_tiles ? tile_fn[row0 + t] : IDENT;
-    for (int d = 1; d < 32; d <<= 1) {
-      const u64 g = __shfl_up_sync(full, f, d);
-      if (lane >= d) f = compose(g, f);
-    }
-    u64 before = __shfl_up_sync(full, f, 1);
-    if (lane == 0) before = IDENT;
-    if (t < n_tiles) tile_entry[row0 + t] = apply_fn(before, carry);
-    carry = apply_fn(__shfl_sync(full, f, 31), carry);
+    __syncthreads();
+    const long long end = min(before + tile_cnt, min(count, o.stride));
+    if (end > before)
+      write_symbols(sbuf,
+                    reinterpret_cast<uint32_t*>(o.rows + row * o.stride),
+                    before, end);
   }
 }
 
-// C: entry state of every byte (kept in ent) and symbols per tile.
-__global__ void __launch_bounds__(THREADS)
-fsm_tile_count(Args a, const int* __restrict__ tile_entry,
-               uint8_t* __restrict__ ent, long long* __restrict__ tile_cnt) {
-  using Scan = cub::BlockScan<u64, THREADS>;
-  using Reduce = cub::BlockReduce<int, THREADS>;
-  __shared__ union {
-    typename Scan::TempStorage scan;
-    typename Reduce::TempStorage reduce;
-  } tmp;
-  const int row = blockIdx.y;
-  const long long t = (long long)row * a.n_tiles + blockIdx.x;
-  const long long tile0 = (long long)blockIdx.x * TILE;
-  const long long plen = a.plens[row];
-  if (tile0 >= plen) {
-    if (threadIdx.x == 0) tile_cnt[t] = 0;
-    return;
-  }
-  Byte by[ITEMS];
-  u64 f[ITEMS];
-  u64 g = IDENT;
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const long long j = tile0 + threadIdx.x * ITEMS + i;
-    by[i] = Byte{0u, 0ull};
-    f[i] = IDENT;
-    if (j < a.p) {
-      by[i] = load_byte(a.ls8, a.n, row * a.p + j, a.s_states);
-      f[i] = byte_fn(by[i], a.s_states);
-    }
-    g = compose(g, f[i]);
-  }
-  u64 excl, agg;
-  Scan(tmp.scan).ExclusiveScan(g, excl, IDENT, Compose(), agg);
-  int q = apply_fn(excl, tile_entry[t]);
-  int cnt = 0;
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const long long j = tile0 + threadIdx.x * ITEMS + i;
-    if (j < plen) {
-      ent[row * a.p + j] = (uint8_t)q;
-      cnt += replay(by[i], q, nullptr);
-    }
-    q = apply_fn(f[i], q);
-  }
-  __syncthreads();  // tmp is reused
-  const int total = Reduce(tmp.reduce).Sum(cnt);
-  if (threadIdx.x == 0) tile_cnt[t] = total;
+// Passes A and B, the look-back's words and the ticket zeroed, then P.
+template <bool PACKS>
+int run_passes(const int* ls8, const int* plens, const int* counts,
+               int s_states, int b, long long p, u64* tile_fn,
+               int* tile_entry, u64* status, Out o, int* under,
+               cudaStream_t stream) {
+  if (b <= 0 || p <= 0) return 0;
+  if (s_states != 8 && s_states != 16) return (int)cudaErrorInvalidValue;
+  if (p % 8) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (int)((p + TILE - 1) / TILE);
+  const long long tiles = (long long)b * n_tiles;
+  const Args a{ls8, plens, counts, ClipLens{0x01010101u * s_states}, p,
+               (long long)b * p, n_tiles};
+  fsm16_tile_fn<<<dim3(n_tiles, b), THREADS, 0, stream>>>(a, tile_fn);
+  SHAFA_RETURN_IF_LAUNCH_FAILED();
+  fsm16_tile_entry<<<b, B_THREADS, 0, stream>>>(tile_fn, tile_entry,
+                                                n_tiles);
+  SHAFA_RETURN_IF_LAUNCH_FAILED();
+  const cudaError_t err =
+      cudaMemsetAsync(status, 0, (tiles + 1) * sizeof(u64), stream);
+  if (err != cudaSuccess) return (int)err;
+  fsm16_tile_emit<PACKS><<<(unsigned)tiles, THREADS, 0, stream>>>(
+      a, tile_entry, status, reinterpret_cast<int*>(status + tiles), o,
+      under);
+  SHAFA_RETURN_IF_LAUNCH_FAILED();
+  return 0;
 }
 
-// The first n of four symbols, MSB first: byte k of v (symbol k) goes to
-// bits 31-8k, and the bits past the n symbols are zero.
-__device__ __forceinline__ uint32_t msb_first(uint32_t v, long long n) {
-  return n > 0 ? shafa_bswap32(v) & (0xFFFFFFFFu << (32 - 8 * (int)n)) : 0u;
-}
-
-// E': replay the thread's ITEMS bytes from their stored entry states and
-// write the packs; lanes past the row's payload get zeros.
-__global__ void __launch_bounds__(THREADS)
-fsm_tile_packs(Args a, const uint8_t* __restrict__ ent,
-               const long long* __restrict__ tile_off,
-               const long long* __restrict__ totals, int* __restrict__ packs,
-               int* __restrict__ under) {
-  using ReplayScan = cub::BlockScan<int, THREADS>;
-  __shared__ ReplayScan::TempStorage tmp;
-  const int row = blockIdx.y;
-  const long long count = a.counts[row];
-  if (blockIdx.x == 0 && threadIdx.x == 0)
-    under[row] = totals[row] < count ? 1 : 0;
-  const long long tile0 = (long long)blockIdx.x * TILE;
-  const long long plen = a.plens[row];
-  int* val1 = packs + row * a.p;
-  int* val2 = val1 + a.n;
-  int* len1 = val2 + a.n;
-  int* len2 = len1 + a.n;
-  if (tile0 >= plen) {
-    for (int i = 0; i < ITEMS; ++i) {
-      const long long j = tile0 + threadIdx.x * ITEMS + i;
-      if (j < a.p) val1[j] = val2[j] = len1[j] = len2[j] = 0;
-    }
-    return;
-  }
-  int nb[ITEMS];
-  u64 sym[ITEMS];
-  int cnt = 0;
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const long long j = tile0 + threadIdx.x * ITEMS + i;
-    nb[i] = 0;
-    sym[i] = 0;
-    if (j < plen) {
-      nb[i] = replay(load_byte(a.ls8, a.n, row * a.p + j, a.s_states),
-                     ent[row * a.p + j], &sym[i]);
-      cnt += nb[i];
-    }
-  }
-  int excl, agg;
-  ReplayScan(tmp).ExclusiveSum(cnt, excl, agg);
-  long long before = tile_off[(long long)row * a.n_tiles + blockIdx.x] + excl;
-#pragma unroll
-  for (int i = 0; i < ITEMS; ++i) {
-    const long long j = tile0 + threadIdx.x * ITEMS + i;
-    if (j < a.p) {
-      const long long allowed = min(max(count - before, 0ll), (long long)nb[i]);
-      const long long n1 = min(allowed, 4ll);
-      const long long n2 = max(allowed - 4, 0ll);
-      val1[j] = (int)msb_first((uint32_t)sym[i], n1);
-      val2[j] = (int)msb_first((uint32_t)(sym[i] >> 32), n2);
-      len1[j] = (int)(8 * n1);
-      len2[j] = (int)(8 * n2);
-    }
-    before += nb[i];
-  }
-}
-
-}  // namespace k7
+}  // namespace fsm16
 
 }  // namespace
 
 extern "C" {
 
-// Bytes per tile of K3 and of K7: the wrappers size the (B, n_tiles)
-// scratch with them.
-int shafa_fsm_decode_tile_bytes() { return k3::TILE; }
-int shafa_fsm_packs_tile_bytes() { return k7::TILE; }
+// Bytes per tile of K3 and K7: the wrappers size the (B, n_tiles) scratch
+// with it.
+int shafa_fsm_decode_tile_bytes() { return fsm16::TILE; }
 
 // K3. ls8: (8, B*P), P a multiple of 8; plens, counts: (B,); tile_fn: (B,
 // n_tiles) u64, tile_entry: (B, n_tiles) i32, status: B * n_tiles + 1 u64
@@ -733,57 +594,25 @@ int shafa_fsm_decode(const int* ls8, const int* plens, const int* counts,
                      int s_states, int b, long long p, u64* tile_fn,
                      int* tile_entry, u64* status, uint8_t* out,
                      long long out_stride, int* under, cudaStream_t stream) {
-  if (b <= 0 || p <= 0) return 0;
-  if (s_states != 8 && s_states != 16) return (int)cudaErrorInvalidValue;
-  if (p % 8 || out_stride % 4) return (int)cudaErrorInvalidValue;
-  const int n_tiles = (int)((p + k3::TILE - 1) / k3::TILE);
-  const long long tiles = (long long)b * n_tiles;
-  const k3::Args a{ls8, plens, counts, k3::ClipLens{0x01010101u * s_states},
-                   p, (long long)b * p, n_tiles};
-  k3::fsm16_tile_fn<<<dim3(n_tiles, b), k3::THREADS, 0, stream>>>(a, tile_fn);
-  SHAFA_RETURN_IF_LAUNCH_FAILED();
-  k3::fsm16_tile_entry<<<b, k3::B_THREADS, 0, stream>>>(tile_fn, tile_entry,
-                                                        n_tiles);
-  SHAFA_RETURN_IF_LAUNCH_FAILED();
-  // the look-back's words and the ticket start at 0
-  const cudaError_t err =
-      cudaMemsetAsync(status, 0, (tiles + 1) * sizeof(u64), stream);
-  if (err != cudaSuccess) return (int)err;
-  k3::fsm16_tile_rows<<<(unsigned)tiles, k3::THREADS, 0, stream>>>(
-      a, tile_entry, status, reinterpret_cast<int*>(status + tiles), out,
-      out_stride, under);
-  SHAFA_RETURN_IF_LAUNCH_FAILED();
-  return 0;
+  if (out_stride % 4) return (int)cudaErrorInvalidValue;
+  return fsm16::run_passes<false>(ls8, plens, counts, s_states, b, p,
+                                  tile_fn, tile_entry, status,
+                                  fsm16::Out{out, out_stride, nullptr,
+                                             nullptr},
+                                  under, stream);
 }
 
-// K7. ls8: (8, B*P); plens, counts: (B,); tile_fn (u64), tile_entry (i32),
-// tile_cnt, tile_off (i64): (B, n_tiles) scratch; totals: (B,) i64 scratch;
-// ent: (B, P) u8 scratch; packs: (4, B, P) i32 (val1, val2, len1, len2);
-// under: (B,) i32.
+// K7. The arguments of K3 up to status; vals, lens: (B, 2P) i32, 16-byte
+// aligned, lane 2j byte j's first pack, lane 2j + 1 its second; under:
+// (B,) i32.
 int shafa_fsm_packs(const int* ls8, const int* plens, const int* counts,
                     int s_states, int b, long long p, u64* tile_fn,
-                    int* tile_entry, long long* tile_cnt, long long* tile_off,
-                    long long* totals, uint8_t* ent, int* packs, int* under,
-                    cudaStream_t stream) {
-  if (b <= 0 || p <= 0) return 0;
-  if (s_states != 8 && s_states != 16) return (int)cudaErrorInvalidValue;
-  const int n_tiles = (int)((p + k7::TILE - 1) / k7::TILE);
-  const k7::Args a{ls8, plens, counts, s_states, p, (long long)b * p, n_tiles};
-  const dim3 grid(n_tiles, b);
-  k7::fsm_tile_fn<<<grid, k7::THREADS, 0, stream>>>(a, tile_fn);
-  SHAFA_RETURN_IF_LAUNCH_FAILED();
-  k7::fsm_tile_entry<<<b, 32, 0, stream>>>(tile_fn, tile_entry, a.n_tiles);
-  SHAFA_RETURN_IF_LAUNCH_FAILED();
-  k7::fsm_tile_count<<<grid, k7::THREADS, 0, stream>>>(a, tile_entry, ent,
-                                                       tile_cnt);
-  SHAFA_RETURN_IF_LAUNCH_FAILED();
-  const int rc = shafa_row_exclusive_scan(tile_cnt, tile_off, totals, b,
-                                          a.n_tiles, stream);
-  if (rc) return rc;
-  k7::fsm_tile_packs<<<grid, k7::THREADS, 0, stream>>>(a, ent, tile_off,
-                                                       totals, packs, under);
-  SHAFA_RETURN_IF_LAUNCH_FAILED();
-  return 0;
+                    int* tile_entry, u64* status, int* vals, int* lens,
+                    int* under, cudaStream_t stream) {
+  return fsm16::run_passes<true>(ls8, plens, counts, s_states, b, p, tile_fn,
+                                 tile_entry, status,
+                                 fsm16::Out{nullptr, 0, vals, lens}, under,
+                                 stream);
 }
 
 }  // extern "C"

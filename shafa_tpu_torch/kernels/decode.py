@@ -22,8 +22,8 @@ into the decoded rows.
 
 The v4 chain, codes of at most 16 bits, which only the decode-stage
 benchmark runs (bench_decode_stages.py:141-183): K2 -> the 8- or 16-state
-machine writing four pack arrays (K7, csrc/fsm_decode.cu, decode.py:1389)
--> interleave_packs -> K1 (emit_packs, decode_batch_packs).
+machine writing its packs interleaved as K6 does (K7, csrc/fsm_decode.cu,
+decode.py:1389) -> K1 (emit_packs, decode_batch_packs).
 """
 
 from __future__ import annotations
@@ -293,15 +293,23 @@ def decode_rows_plain(ls8, payload_lens, out_counts, s_states: int,
     return out.view(b, out_p), under
 
 
-def _fsm_packs_scratch(lib, b: int, p: int, dev) -> list[torch.Tensor]:
-    """Scratch of K7: per tile (B, n_tiles), per row, per byte."""
-    tiles = (b, -(-p // lib.shafa_fsm_packs_tile_bytes()))
-    return [torch.empty(tiles, dtype=torch.int64, device=dev),  # u64 fns
-            torch.empty(tiles, dtype=torch.int32, device=dev),  # entries
-            torch.empty(tiles, dtype=torch.int64, device=dev),  # counts
-            torch.empty(tiles, dtype=torch.int64, device=dev),  # offsets
-            torch.empty(b, dtype=torch.int64, device=dev),      # totals
-            torch.empty((b, p), dtype=torch.uint8, device=dev)]  # states
+def _fsm16_args(ls8, payload_lens, out_counts, what: str) -> list:
+    """K3's and K7's inputs and scratch: the planes, the row lengths and
+    counts, then per tile the functions, the entry states and the
+    look-back's words (with the ticket after them)."""
+    b = payload_lens.shape[0]
+    p = ls8.shape[1] // b
+    if p % 8:
+        raise ValueError(f"{what}: payload width {p} is not a multiple of 8")
+    dev = ls8.device
+    n_tiles = -(-p // _build.library().shafa_fsm_decode_tile_bytes())
+    scratch = [torch.empty((b, n_tiles), dtype=torch.int64, device=dev),
+               torch.empty((b, n_tiles), dtype=torch.int32, device=dev),
+               torch.empty(b * n_tiles + 1, dtype=torch.int64, device=dev)]
+    return [_build.ptr(ls8, torch.int32, (8, b * p), dev),
+            _build.ptr(payload_lens, torch.int32, (b,), dev),
+            _build.ptr(out_counts, torch.int32, (b,), dev),
+            scratch]
 
 
 def decode_rows(ls8: torch.Tensor, payload_lens: torch.Tensor,
@@ -319,30 +327,19 @@ def decode_rows(ls8: torch.Tensor, payload_lens: torch.Tensor,
     if ls8.device.type == "cpu":
         return decode_rows_plain(ls8, payload_lens, out_counts, s_states,
                                  out_p)
+    if out_p % 4:
+        raise ValueError(f"decode_rows: row width {out_p} is not a multiple "
+                         "of 4")
+    *args, scratch = _fsm16_args(ls8, payload_lens, out_counts, "decode_rows")
     b = payload_lens.shape[0]
-    p = ls8.shape[1] // b
-    if p % 8 or out_p % 4:
-        raise ValueError(f"decode_rows: payload width {p} is not a multiple "
-                         f"of 8 or row width {out_p} not one of 4")
     dev = ls8.device
-    args = [_build.ptr(ls8, torch.int32, (8, b * p), dev),
-            _build.ptr(payload_lens, torch.int32, (b,), dev),
-            _build.ptr(out_counts, torch.int32, (b,), dev)]
-    lib = _build.library()
-    n_tiles = -(-p // lib.shafa_fsm_decode_tile_bytes())
-    scratch = [torch.empty((b, n_tiles), dtype=torch.int64,
-                           device=dev),                        # functions
-               torch.empty((b, n_tiles), dtype=torch.int32,
-                           device=dev),                        # entry states
-               torch.empty(b * n_tiles + 1, dtype=torch.int64,
-                           device=dev)]        # look-back words, the ticket
     out = torch.zeros((b, out_p), dtype=torch.uint8, device=dev)
     under = torch.empty(b, dtype=torch.int32, device=dev)
     _build.launches["fsm_decode"] += 1
-    _build.check(lib.shafa_fsm_decode(
-        *args, s_states, b, p, *[t.data_ptr() for t in scratch],
-        out.data_ptr(), out_p, under.data_ptr(), _build.stream(dev)),
-        "fsm_decode")
+    _build.check(_build.library().shafa_fsm_decode(
+        *args, s_states, b, ls8.shape[1] // b,
+        *[t.data_ptr() for t in scratch], out.data_ptr(), out_p,
+        under.data_ptr(), _build.stream(dev)), "fsm_decode")
     return out, under.bool()
 
 
@@ -433,8 +430,9 @@ def fsm_packs_plain(planes, payload_lens, out_counts, s_states: int):
     """Plain version of fsm_packs (s_states 8 or 16) and fsm32_packs
     (s_states 32): the E-table and replay of decode_rows_plain, one row at a
     time (a row's (P, s_states) functions are composed by a Hillis-Steele
-    scan of gathers). Code lengths are `& 31` below 32 states and `& 63` at
-    32 (a length of 32 takes 6 bits), clipped to [1, s_states]."""
+    scan of gathers), its four pack arrays interleaved by interleave_packs.
+    Code lengths are `& 31` below 32 states and `& 63` at 32 (a length of
+    32 takes 6 bits), clipped to [1, s_states]."""
     b = payload_lens.shape[0]
     p = planes.shape[1] // b
     dev = planes.device
@@ -484,7 +482,7 @@ def fsm_packs_plain(planes, payload_lens, out_counts, s_states: int):
         packs[2, r] = 8 * n1
         packs[3, r] = 8 * n2
     packs = to_i32(packs)
-    return packs[0], packs[1], packs[2], packs[3], under
+    return (*interleave_packs(*packs), under)
 
 
 def interleave_packs(val1, val2, len1, len2):
@@ -498,8 +496,7 @@ def interleave_packs(val1, val2, len1, len2):
 
 def fsm32_packs_plain(planes, payload_lens, out_counts):
     """Plain version of fsm32_packs."""
-    *packs, under = fsm_packs_plain(planes, payload_lens, out_counts, 32)
-    return (*interleave_packs(*packs), under)
+    return fsm_packs_plain(planes, payload_lens, out_counts, 32)
 
 
 def fsm32_packs(planes: torch.Tensor, payload_lens: torch.Tensor,
@@ -545,19 +542,17 @@ def fsm32_packs(planes: torch.Tensor, payload_lens: torch.Tensor,
     return vals, lens, under.bool()
 
 
+def emit_packs(vals, lens, payload_lens, stride_words: int):
+    """K7's or K6's interleaved packs -> (B, 4 * stride_words) uint8
+    decoded rows: K1's bits variant over each row's 2 * payload_lens
+    lanes."""
+    return emit_bits_rows(vals, lens, 2 * payload_lens, stride_words)
+
+
 def _rows_of_packs(vals, lens, under, payload_lens, out_p: int):
-    """Interleaved packs -> ((B, out_p) uint8 decoded rows, underrun):
-    K1's bits variant concatenates each row's 2 * payload_lens lanes."""
-    rows = emit_bits_rows(vals, lens, 2 * payload_lens,
-                          max(out_p, 512) // 4)
+    """Interleaved packs -> ((B, out_p) uint8 decoded rows, underrun)."""
+    rows = emit_packs(vals, lens, payload_lens, max(out_p, 512) // 4)
     return rows[:, :out_p].contiguous(), under
-
-
-def emit_packs(val1, val2, len1, len2, payload_lens, stride_words: int):
-    """K7's four pack arrays -> (B, 4 * stride_words) uint8 decoded rows:
-    interleaved (interleave_packs), then K1's bits variant."""
-    return emit_bits_rows(*interleave_packs(val1, val2, len1, len2),
-                          2 * payload_lens, stride_words)
 
 
 def decode_batch32(payload, payload_lens, pc32, ls, ncodes, lut, out_counts,
@@ -576,36 +571,37 @@ def decode_batch32(payload, payload_lens, pc32, ls, ncodes, lut, out_counts,
 
 def fsm_packs(planes: torch.Tensor, payload_lens: torch.Tensor,
               out_counts: torch.Tensor, s_states: int):
-    """K2 planes -> (val1, val2, len1, len2) each (B, P) int32, and the (B,)
-    bool underrun flag: what shafa_tpu/kernels/decode.py::_stage2_chain_ls
-    returns.
+    """K2 planes -> (vals, lens) each (B, 2P) int32, and the (B,) bool
+    underrun flag: what shafa_tpu/kernels/decode.py::_stage2_chain_ls
+    returns, interleaved as K1's bits variant reads it (fsm32_packs'
+    layout).
 
     fsm32_packs' contract on the 8- or 16-state machine (s_states >= the
     batch's longest code; code lengths `& 31`): byte j of row r replays its
-    symbols; those below the row's count go MSB first into val1 (the first
-    four) and val2 (the rest), with len1 / len2 their bit counts. Lanes past
-    the row's payload are zero, where the TPU kernel leaves its tiles there
-    unwritten. Underrun: the payload holds fewer symbols than the count.
+    symbols; those below the row's count go MSB first into lane 2j (the
+    first four) and lane 2j + 1 (the rest) of vals, with their bit counts in
+    the same lanes of lens. Lanes past the row's payload are zero, where the
+    TPU kernel leaves its tiles there unwritten. Underrun: the payload holds
+    fewer symbols than the count. On the card P must be a multiple of 8.
     """
     if s_states not in (8, 16):
         raise ValueError("s_states must be 8 or 16")
     if planes.device.type == "cpu":
         return fsm_packs_plain(planes, payload_lens, out_counts, s_states)
+    *args, scratch = _fsm16_args(planes, payload_lens, out_counts,
+                                 "fsm_packs")
     b = payload_lens.shape[0]
     p = planes.shape[1] // b
     dev = planes.device
-    args = [_build.ptr(planes, torch.int32, (8, b * p), dev),
-            _build.ptr(payload_lens, torch.int32, (b,), dev),
-            _build.ptr(out_counts, torch.int32, (b,), dev)]
-    lib = _build.library()
-    scratch = _fsm_packs_scratch(lib, b, p, dev)
-    packs = torch.empty((4, b, p), dtype=torch.int32, device=dev)
+    vals = torch.empty((b, 2 * p), dtype=torch.int32, device=dev)
+    lens = torch.empty((b, 2 * p), dtype=torch.int32, device=dev)
     under = torch.empty(b, dtype=torch.int32, device=dev)
     _build.launches["fsm_packs"] += 1
-    _build.check(lib.shafa_fsm_packs(
+    _build.check(_build.library().shafa_fsm_packs(
         *args, s_states, b, p, *[t.data_ptr() for t in scratch],
-        packs.data_ptr(), under.data_ptr(), _build.stream(dev)), "fsm_packs")
-    return packs[0], packs[1], packs[2], packs[3], under.bool()
+        vals.data_ptr(), lens.data_ptr(), under.data_ptr(),
+        _build.stream(dev)), "fsm_packs")
+    return vals, lens, under.bool()
 
 
 def decode_batch_packs(payload, payload_lens, pc16, ls, lut12, out_counts,
@@ -614,7 +610,6 @@ def decode_batch_packs(payload, payload_lens, pc16, ls, lut12, out_counts,
     _emit_packs, decode.py:1389, :1444). Tables from rank_tables and
     rank_lut12 (codes <= 16 bits); returns what decode_batch returns."""
     planes = rank_planes(payload, pc16, ls, lut12)
-    *packs, under = fsm_packs(planes, payload_lens, out_counts, s_states)
+    vals, lens, under = fsm_packs(planes, payload_lens, out_counts, s_states)
     del planes
-    return _rows_of_packs(*interleave_packs(*packs), under, payload_lens,
-                          out_p)
+    return _rows_of_packs(vals, lens, under, payload_lens, out_p)

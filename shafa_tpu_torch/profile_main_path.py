@@ -72,8 +72,7 @@ STAGES = [
     (kdecode, "decode_rows"), (kdecode, "decode_batch32"),
     (kdecode, "rank_planes32"), (kdecode, "fsm32_packs"),
     (kdecode, "emit_packs"), (kdecode, "emit_bits_rows"),
-    (kexpand, "rle_expand_prep"),
-    (kexpand, "rle_expand_compact"),
+    (kexpand, "rle_expand_sizes"), (kexpand, "rle_expand"),
 ]
 
 #: Chrome-trace categories of work on the device.

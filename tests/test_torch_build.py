@@ -37,7 +37,9 @@ def test_resources_reads_the_ptxas_report(tmp_path, monkeypatch, anonymous):
 
 
 @pytest.mark.parametrize("mangled,name", [
-    ("_ZN12_GLOBAL__N_12k313fsm16_tile_fnENS_4ArgsEPy", "fsm16_tile_fn"),
+    ("_ZN12_GLOBAL__N_15fsm1613fsm16_tile_fnENS0_4ArgsEPy", "fsm16_tile_fn"),
+    ("_ZN12_GLOBAL__N_15fsm1615fsm16_tile_emitILb1EEEvNS0_4ArgsEPKiPyPiNS0_"
+     "3OutES5_", "fsm16_tile_emit<1>"),
     ("_ZN12_GLOBAL__N_115rank_lut_planesEPKhPKsPKiS5_xxPi",
      "rank_lut_planes"),
     ("_Z12plain_kerneli", "plain_kernel"),
@@ -47,5 +49,6 @@ def test_resources_reads_the_ptxas_report(tmp_path, monkeypatch, anonymous):
 def test_kernel_name_of_a_nested_or_plain_mangled_name(mangled, name):
     """A kernel inside a namespace nested in the anonymous one (K3's and
     K7's in fsm_decode.cu) keeps its own name, the last of the nested
-    name; a template instance (K1's) names its literal arguments."""
+    name; a template instance (K1's, K3's and K7's last pass) names its
+    literal arguments."""
     assert _build._kernel_name(mangled) == name

@@ -99,10 +99,11 @@ def batch(request):
 
 
 def test_fsm_packs_match_pallas(batch):
-    """The four pack arrays and the underrun flags of K7 against
-    _stage2_chain_ls on the JAX kernel's planes (equal to the port's):
-    lanes within each row's payload equal (the JAX kernel leaves the tiles
-    past it unwritten); the port's lanes past it are zero."""
+    """K7's interleaved packs (lane 2j: byte j's first pack, 2j + 1: its
+    second) and underrun flags against the four arrays of _stage2_chain_ls
+    on the JAX kernel's planes (equal to the port's): lanes within each
+    row's payload equal (the JAX kernel leaves the tiles past it
+    unwritten); the port's lanes past it are zero."""
     np.testing.assert_array_equal(batch["planes"].numpy(), batch["jplanes"])
     got = decode.fsm_packs(torch.from_numpy(batch["jplanes"]),
                            torch.from_numpy(batch["plens"]),
@@ -111,11 +112,14 @@ def test_fsm_packs_match_pallas(batch):
     want = batch["want"]
     p = batch["st"].shape[1]
     valid = np.arange(p)[None, :] < batch["plens"][:, None]
-    for g, w in zip(got[:4], want[:4]):
+    assert got[0].shape == got[1].shape == (batch["st"].shape[0], 2 * p)
+    lanes = [got[0][:, 0::2], got[0][:, 1::2], got[1][:, 0::2],
+             got[1][:, 1::2]]
+    for g, w in zip(lanes, want[:4]):
         np.testing.assert_array_equal(g.numpy()[valid], w[valid])
         assert not g.numpy()[~valid].any()
-    np.testing.assert_array_equal(got[4].numpy(), want[4])
-    assert got[4].tolist() == [False, True, False]
+    np.testing.assert_array_equal(got[2].numpy(), want[4])
+    assert got[2].tolist() == [False, True, False]
 
 
 def test_decode_batch_packs_matches_oracle_and_k3(batch):
@@ -141,15 +145,16 @@ def test_emit_packs_matches_pallas(batch):
     over each row's decoded symbols."""
     counts, plens = batch["counts"], batch["plens"]
     stride_words = max(_bucket(int(counts.max())), 512) // 4
-    packs = decode.fsm_packs(batch["planes"], torch.from_numpy(plens),
-                             torch.from_numpy(counts), batch["s_states"])
-    got = decode.emit_packs(*packs[:4], torch.from_numpy(plens),
+    vals, lens, _ = decode.fsm_packs(batch["planes"], torch.from_numpy(plens),
+                                     torch.from_numpy(counts),
+                                     batch["s_states"])
+    got = decode.emit_packs(vals, lens, torch.from_numpy(plens),
                             stride_words)
     want = np.asarray(jdec._emit_packs(
         *map(jnp.asarray, batch["want"][:4]), jnp.asarray(plens),
         stride_words, True))
     assert got.shape == want.shape
-    kept = ((packs[2].sum(1) + packs[3].sum(1)) // 8).tolist()
+    kept = (lens.sum(1) // 8).tolist()
     assert kept[::2] == counts.tolist()[::2] and 0 < kept[1] < counts[1]
     for i, n in enumerate(kept):
         np.testing.assert_array_equal(got[i, :n].numpy(), want[i, :n])

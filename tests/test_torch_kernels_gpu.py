@@ -164,16 +164,22 @@ def test_rank_and_fsm_decode(cuda, kind):
 
 @pytest.mark.parametrize("kind", ["all_8bit", "skewed", "ragged_underrun"])
 def test_fsm_packs(cuda, kind):
-    """K7 against its plain version at 8 (all_8bit) and 16 states, and the
-    v4 chain (K2, K7, K1) against the K2 -> K3 route on the card."""
+    """K7's interleaved (B, 2P) vals and lens and its underrun flags against
+    its plain version at 8 (all_8bit) and 16 states, 20 runs (its last pass
+    takes its offsets from a look-back), and the v4 chain (K2, K7, K1)
+    against the K2 -> K3 route on the card."""
     blocks, counts, st, plens, dt, s_states = _decode16_case(kind)
     assert s_states == (8 if kind == "all_8bit" else 16)
     ls8 = decode.rank_planes(torch.from_numpy(st), dt.pc16, dt.ls,
                              dt.lut12).numpy()
     want, got = _both(lambda *a: decode.fsm_packs(*a, s_states), ls8, plens,
                       counts)
-    for g, w in zip(got, want):
-        assert torch.equal(g.cpu(), w)
+    b, p = st.shape
+    assert got[0].shape == got[1].shape == (b, 2 * p)
+    on_card = [torch.from_numpy(a).cuda() for a in (ls8, plens, counts)]
+    for _ in range(20):
+        for g, w in zip(decode.fsm_packs(*on_card, s_states), want):
+            assert torch.equal(g.cpu(), w)
     args = [torch.from_numpy(a).cuda() for a in (st, plens)] + [
         dt.pc16.cuda(), dt.ls.cuda(), dt.lut12.cuda(),
         torch.from_numpy(counts).cuda(),
@@ -190,9 +196,13 @@ def test_fsm_packs(cuda, kind):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_expand(cuda, seed):
+    """K4 (its sizes, then its expansion) against its plain version, 5 runs,
+    on random whole-token rows of 5000, 300,000, 0 and 3 bytes (seed 0)
+    or on K4's edge rows (seed 1: chip_smoke.k4_edge_rows)."""
+    from chip_smoke import k4_edge_rows
     rng = np.random.default_rng(seed)
     rows = []
-    for n in (5000, 300_000, 0, 3):
+    for n in (5000, 300_000, 0, 3) if seed == 0 else ():
         out = bytearray()  # whole tokens only: no escape cut at the end
         while len(out) < n:
             if rng.random() < 0.4:
@@ -201,15 +211,25 @@ def test_expand(cuda, seed):
             else:
                 out.append(int(rng.integers(1, 256)))
         rows.append(np.frombuffer(bytes(out), np.uint8))
+    if seed:
+        rows = k4_edge_rows(_build.library().shafa_expand_tile_bytes(), seed)
     x, lens = _stack_blocks(rows)
-    prep = expand.rle_expand_prep(torch.from_numpy(x), torch.from_numpy(lens))
-    total = int(prep["out_len"].sum())
-    args = [prep[k].numpy() for k in ("cum", "sym", "out_base")]
-    want, got = _both(lambda c, s, b: expand.expand_tokens(c, s, b, total),
-                      *args)
+    total = int(expand.rle_expand_sizes(torch.from_numpy(x),
+                                        torch.from_numpy(lens))["out_len"]
+                .sum())
+
+    def expanded(xs, ls):
+        sizes = expand.rle_expand_sizes(xs, ls)
+        assert int(sizes["out_len"].sum()) == total
+        return expand.rle_expand(sizes, total)
+    want, got = _both(expanded, x, lens)
     assert torch.equal(got.cpu(), want)
-    assert want.numpy().tobytes() == b"".join(
-        oracle.rle_expand(r).tobytes() for r in rows)
+    on_card = [torch.from_numpy(a).cuda() for a in (x, lens)]
+    for _ in range(4):
+        assert torch.equal(expanded(*on_card).cpu(), want)
+    if seed == 0:
+        assert want.numpy().tobytes() == b"".join(
+            oracle.rle_expand(r).tobytes() for r in rows)
 
 
 def _canonical(lens_list):

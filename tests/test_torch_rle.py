@@ -1,5 +1,5 @@
 """RLE encode (K1's bits variant), the histogram, the token scan and the
-run expansion (K4's plain version) of shafa_tpu_torch against the JAX
+run expansion (K4's entry, plain on the CPU) of shafa_tpu_torch against the JAX
 package: its Pallas kernels in interpret mode, its XLA stages and its numpy
 oracles. Same inputs from numpy seeds and tests/corpus.py; exact equality.
 """
@@ -126,12 +126,13 @@ def test_expand_matches_pallas_and_reference(case):
     jw, jl = jexp.rle_expand_pages(jnp.asarray(x), jnp.asarray(lens), out_p,
                                    interpret=True)
     jb = np.asarray(jw).view(np.uint8).reshape(x.shape[0], -1)
-    prep = expand.rle_expand_prep(torch.from_numpy(x), torch.from_numpy(lens))
-    sizes = prep["out_len"].numpy()
+    dev_sizes = expand.rle_expand_sizes(torch.from_numpy(x),
+                                        torch.from_numpy(lens))
+    sizes = dev_sizes["out_len"].numpy()
     np.testing.assert_array_equal(sizes, ref_lens)
     np.testing.assert_array_equal(sizes, np.asarray(jl))
-    flat = expand.rle_expand_compact(prep, int(sizes.sum())).numpy()
-    starts = prep["out_base"].numpy()
+    flat = expand.rle_expand(dev_sizes, int(sizes.sum())).numpy()
+    starts = np.cumsum(sizes) - sizes
     for r, n in enumerate(ref_lens):
         row = flat[starts[r]:starts[r] + n]
         np.testing.assert_array_equal(row, ref[r, :n], err_msg=f"row {r}")
