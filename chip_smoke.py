@@ -39,15 +39,33 @@ Phases, each fatal on failure:
      K4); no block decoded on the host on either, and neither
      rle.token_starts nor decode.interleave_packs runs (each is replaced
      by a function that raises);
-  6. the decode-stage path: ``shafa_tpu_torch.bench_decode_stages.main``
+  6. the streaming path, with the 200 MB corpora freed first: a 1 GiB file
+     of the mixed corpus (16 blocks of 64 MiB) through
+     ``cli.main([path, "-b", "M"])``, which must stream in F, C and D and
+     take the R mode; its .rle, .rle.freq, .rle.cod and .rle.shaf against
+     those of the resident compress of a copy of the
+     file (pipeline.STREAM_THRESHOLD raised for it, then restored), by
+     SHA-256; the decompress of the streamed .rle.shaf and the RLE-only
+     decode of its .rle (``-m d``, which streams, the .rle being above
+     256 MiB), each bit-exact by SHA-256; launch counts read around each
+     streaming step (K1 both variants, K2, K3, K4), no block decoded on
+     the host, rle.token_starts and decode.interleave_packs refused as in
+     5; the walls, MB/s and device memory peaks printed. Each file is
+     deleted once it has been compared (about 4.5 GB at the peak). Then
+     K1-K4 against their plain versions, exact and timed, on the inputs
+     that this path gave them (one 64 MiB block a batch): K1 bits and K1
+     LUT on the compress's first RLE encode and pack batches, K2 and K3 on
+     the decompress's first decode batch, K4 on the first RLE rows of the
+     decompress and of the RLE-only decode;
+  7. the decode-stage path: ``shafa_tpu_torch.bench_decode_stages.main``
      at its defaults (64 MiB of the synthetic corpus in 8 MiB blocks; K2,
      K7, K1, K3, K4 and its own checks), launch counts read around it;
-  7. the sidecars of a 16 MB mixed and a 16 MB random file at -b K against
+  8. the sidecars of a 16 MB mixed and a 16 MB random file at -b K against
      the same CLI with ``--backend numpy``; no module of shafa_tpu and no
      jax imported in the whole run.
 
 The line before the last holds the kernels' JSON record (``launches`` sums
-the three paths' counts, ``launches_by_path`` keeps each); the last line is
+the four paths' counts, ``launches_by_path`` keeps each); the last line is
 the device JSON line. Without a CUDA card, or without the repository beside
 it, the script exits 1 and prints no result.
 """
@@ -55,6 +73,7 @@ it, the script exits 1 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -67,6 +86,8 @@ import time
 import numpy as np
 
 CORPUS_BYTES = 200_000_000
+#: BASELINE.md's 1 GiB configuration, at -b M (64 MiB blocks)
+STREAM_BYTES = 1 << 30
 SIDECAR_BYTES = 16_000_000
 SEED = 0
 BLOCK = 8 << 20
@@ -99,6 +120,8 @@ PATH_KERNELS = {
               "expand_sizes", "expand"),
     "text": ("emit_bits", "emit_coded", "rank32", "fsm32", "expand_sizes",
              "expand"),
+    "streaming": ("emit_bits", "emit_coded", "rank", "fsm_decode",
+                  "expand_sizes", "expand"),
     "decode_stages": ("fsm_packs", "rank", "fsm_decode", "expand_sizes",
                       "expand", "emit_bits"),
 }
@@ -732,6 +755,239 @@ def main_path(work: str, name: str, data: bytes) -> dict:
                                             int(maxlen.max())))
 
 
+def sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as fp:
+        for chunk in iter(lambda: fp.read(64 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def recorded(module, *names):
+    """Each named function of module wrapped to keep the reports it returns
+    while the block runs: {name: [reports, ...]}."""
+    calls = {n: [] for n in names}
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            calls[name].append(out[1])
+            return out
+        return call
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+@contextlib.contextmanager
+def captured(*targets):
+    """Each (module, name) wrapped to keep a host copy of the arguments of
+    its first call under each label: yields ({(label, name): args}, arm),
+    where arm(label) sets the label (None keeps nothing)."""
+    import torch
+    got = {}
+    label = [None]
+    saved = [(m, n, getattr(m, n)) for m, n in targets]
+
+    def wrap(name, fn):
+        def call(*args):
+            if label[0] is not None and (label[0], name) not in got:
+                got[label[0], name] = tuple(
+                    a.to("cpu", copy=True) if isinstance(a, torch.Tensor)
+                    else a for a in args)
+            return fn(*args)
+        return call
+    for m, n, fn in saved:
+        setattr(m, n, wrap(n, fn))
+    try:
+        yield got, lambda new: label.__setitem__(0, new)
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def streaming_path(work: str) -> dict:
+    """BASELINE's 1 GiB -b M round trip through the streaming pipelines, the
+    resident compress of the same file beside it, and the RLE-only decode
+    of the streamed .rle; launch counts read around each streaming step
+    and summed. The arguments of the first call of each kernel's entry in
+    each streaming step are kept on the host for stream_kernel_phase."""
+    import torch
+    from shafa_tpu_torch import pipeline
+    from shafa_tpu_torch.device import TorchBackend
+    from shafa_tpu_torch.kernels import _build, decode, expand, pack, rle
+    from shafa_tpu_torch.profile_main_path import synthetic
+
+    path = os.path.join(work, "stream.bin")
+    data = synthetic(STREAM_BYTES, SEED)
+    want = hashlib.sha256(data).hexdigest()
+    with open(path, "wb") as fp:
+        fp.write(data)
+    del data
+    exts = (".rle", ".rle.freq", ".rle.cod", ".rle.shaf")
+    launches = {}
+    walls = {}
+    peaks = {}
+
+    def step(name, argv):
+        arm(None if name == "resident" else name)
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_cli(argv, io.StringIO())
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        peaks[name] = torch.cuda.max_memory_allocated()
+        if name != "resident":
+            for k, n in _build.launches.items():
+                launches[k] = launches.get(k, 0) + n
+        print(f"streaming phase, {name}: {walls[name]:.3f} s, launches "
+              f"{dict(_build.launches)}", flush=True)
+
+    TorchBackend.host_decoded_blocks = 0
+    with refused((rle, "token_starts"), (decode, "interleave_packs")), \
+            recorded(pipeline, "compress_pipeline_streaming",
+                     "_module_d_shafa_streaming",
+                     "_module_d_rle_streaming") as calls, \
+            captured((rle, "rle_encode_batch"), (pack, "pack_batch"),
+                     (decode, "decode_batch"),
+                     (expand, "rle_expand_sizes")) as (args, arm):
+        step("compress", [path, "-b", "M"])
+        # F and C are one driver: its call shows that both streamed
+        (reps,) = calls["compress_pipeline_streaming"] or [None]
+        if reps is None or not reps[0].extra.get("streaming"):
+            fail("streaming: the 1 GiB compress did not stream in F and C")
+        if not reps[0].extra["compress_rle"] \
+                or not os.path.isfile(path + ".rle.shaf"):
+            fail("streaming: the 1 GiB compress did not take the R mode")
+        streamed = {e: sha256(path + e) for e in exts}
+        sizes = {e: os.path.getsize(path + e) for e in exts}
+
+        resident = os.path.join(work, "resident.bin")
+        shutil.copyfile(path, resident)
+        threshold = pipeline.STREAM_THRESHOLD
+        pipeline.STREAM_THRESHOLD = 1 << 62
+        try:
+            step("resident", [resident, "-b", "M"])
+        finally:
+            pipeline.STREAM_THRESHOLD = threshold
+        if len(calls["compress_pipeline_streaming"]) != 1:
+            fail("streaming: the resident compress streamed")
+        for e in exts:
+            if sha256(resident + e) != streamed[e]:
+                fail(f"streaming: {e} differs from the resident compress's")
+        for f in (resident,) + tuple(resident + e for e in exts):
+            os.remove(f)
+
+        os.remove(path)
+        step("decompress", [path + ".rle.shaf"])
+        (rep_d,) = calls["_module_d_shafa_streaming"] or [None]
+        if rep_d is None or not rep_d.extra.get("streaming"):
+            fail("streaming: the decompress did not stream")
+        if sha256(path) != want:
+            fail("streaming: the 1 GiB round trip is not bit-exact")
+        for f in (path, path + ".rle.shaf", path + ".rle.cod"):
+            os.remove(f)
+
+        step("rle_decode", [path + ".rle", "-m", "d"])
+        if len(calls["_module_d_rle_streaming"]) != 1:
+            fail("streaming: the RLE-only decode of the .rle did not "
+                 "stream")
+        if sha256(path) != want:
+            fail("streaming: the RLE-only decode is not bit-exact")
+        for f in (path, path + ".rle", path + ".rle.freq"):
+            os.remove(f)
+        arm(None)
+    missing = [k for k in PATH_KERNELS["streaming"] if launches.get(k, 0) < 1]
+    if missing:
+        fail(f"streaming: {missing} not launched: {launches}")
+    if TorchBackend.host_decoded_blocks:
+        fail(f"streaming: {TorchBackend.host_decoded_blocks} blocks decoded "
+             "on the host")
+    return dict(launches=launches, walls=walls, peaks=peaks, sizes=sizes,
+                blocks=reps[0].n_blocks, args=args)
+
+
+def stream_kernel_phase(args: dict, dev) -> list[dict]:
+    """K1-K4 against their plain versions on the inputs that the streaming
+    path gave them (streaming_path's first call of each entry, one 64 MiB
+    block a batch): K1 bits on the compress's first RLE encode batch, K1
+    LUT on its first pack batch, K2 and K3 on the decompress's first decode
+    batch, K4 on the first RLE rows of the decompress and of the RLE-only
+    decode. Exact equality, both timed."""
+    import torch
+    from shafa_tpu_torch.kernels import decode, emit, expand, rle
+
+    def on_card(key):
+        if key not in args:
+            fail(f"streaming: {key[1]} was not called in the {key[0]} step")
+        return [a.to(dev) if isinstance(a, torch.Tensor) else a
+                for a in args[key]]
+
+    results = []
+    x, ld = on_card(("compress", "rle_encode_batch"))
+    val, bitlen, out_len = rle.rle_payloads(x, ld)
+    ld = ld.to(torch.int32)
+    stride = rle.rle_out_bound(x.shape[1]) // 4
+    r = compare("K1 emit_bits at the streaming shapes",
+                lambda: emit.emit_bits_rows(val, bitlen, ld, stride),
+                lambda: emit.emit_bits_rows_plain(val, bitlen, ld, stride),
+                8 * int(ld.sum()) + nbytes(ld) + int(out_len.sum()),
+                lambda rows_: [rows_[i, :int(n)] for i, n in
+                               enumerate(out_len.tolist())])
+    results.append(dict(name="emit_bits", shape=list(val.shape), **r))
+    del x, val, bitlen
+
+    pack_args = on_card(("compress", "pack_batch"))
+    r = compare("K1 emit_coded at the streaming shapes",
+                lambda: emit.emit_coded(*pack_args),
+                lambda: emit.emit_coded_plain(*pack_args),
+                int(pack_args[1].sum()) + nbytes(*pack_args[1:5])
+                + 4 * pack_args[5], lambda flat: [flat])
+    results.append(dict(name="emit_coded", shape=list(pack_args[0].shape),
+                        **r))
+    del pack_args
+
+    px, pl, pc16, ls, lut12, cnt, out_p, s_states = on_card(
+        ("decompress", "decode_batch"))
+    payload = int(pl.sum())
+    r = compare("K2 rank at the streaming shapes",
+                lambda: decode.rank_planes(px, pc16, ls, lut12),
+                lambda: decode.rank_planes_plain(px, pc16, ls),
+                33 * payload + nbytes(pc16, ls, lut12), lambda t: [t])
+    results.append(dict(name="rank", shape=list(px.shape), **r))
+    ls8 = decode.rank_planes(px, pc16, ls, lut12)
+    r = compare("K3 fsm_decode at the streaming shapes",
+                lambda: decode.decode_rows(ls8, pl, cnt, s_states, out_p),
+                lambda: decode.decode_rows_plain(ls8, pl, cnt, s_states,
+                                                 out_p),
+                32 * payload + nbytes(pl, cnt) + int(cnt.sum())
+                + px.shape[0], lambda t: list(t))
+    results.append(dict(name="fsm_decode", shape=list(px.shape), **r))
+    del ls8, px
+
+    for step in ("decompress", "rle_decode"):
+        dec, lens = on_card((step, "rle_expand_sizes"))
+        total = k4_total(dec, lens)
+        r = compare(f"K4 expand at the streaming shapes ({step})",
+                    lambda: expand.rle_expand(
+                        expand.rle_expand_sizes(dec, lens), total),
+                    lambda: k4_plain(dec, lens, total),
+                    int(lens.sum()) + nbytes(lens) + total, lambda t: [t])
+        results.append(dict(name="expand", step=step,
+                            shape=list(dec.shape), **r))
+        del dec
+    torch.cuda.empty_cache()
+    return results
+
+
 def decode_stages_path() -> dict:
     """The port of bench_decode_stages.py at its defaults, in process, with
     the launch counts read around it."""
@@ -871,7 +1127,30 @@ def main() -> int:
                 <= 32:
             fail(f"text: longest codes {runs['text']['maxlen']}, not all "
                  "17-32 bits")
-        del corpora
+        del corpora, data
+        res = runs["streaming"] = streaming_path(work)
+        mb = STREAM_BYTES / 1e6
+        w, pk = res["walls"], res["peaks"]
+        print(f"streaming 1 GiB -b M on {card}: {res['blocks']} blocks, "
+              f"compress {mb / w['compress']:.1f} MB/s "
+              f"({w['compress']:.3f} s; resident compress of the same file "
+              f"{w['resident']:.3f} s), decompress "
+              f"{mb / w['decompress']:.1f} MB/s ({w['decompress']:.3f} s), "
+              f"RLE-only decode of the {res['sizes']['.rle']}-byte .rle "
+              f"{mb / w['rle_decode']:.1f} MB/s ({w['rle_decode']:.3f} s), "
+              f".rle.shaf {res['sizes']['.rle.shaf']} bytes; device peak "
+              f"(max_memory_allocated) compress {pk['compress']} B, "
+              f"decompress {pk['decompress']} B, RLE-only decode "
+              f"{pk['rle_decode']} B, resident compress {pk['resident']} B; "
+              "F, C and D streamed, sidecars equal to the resident "
+              "compress's, both decodes bit-exact, launches "
+              f"{res['launches']}, host-decoded blocks 0", flush=True)
+        for k in stream_kernel_phase(res.pop("args"), dev):
+            step = f", {k['step']}" if "step" in k else ""
+            print(f"{k['name']} at the streaming shapes{step}: shape "
+                  f"{k['shape']} kernel {k['ms']:.3f} ms, plain "
+                  f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.3f} ms, "
+                  "exact", flush=True)
         res = runs["decode_stages"] = decode_stages_path()
         print(f"decode_stages path (bench_decode_stages.main at its "
               f"defaults) on {card}: {res['wall_s']:.1f} s, its checks "

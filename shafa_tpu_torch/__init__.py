@@ -7,8 +7,8 @@ copies of the host layers it runs (each names its original):
   errors / geometry / formats / codes / oracle / runtime/
              host format ABI, code tables, the NumPy reference and its C++
              helpers (built with g++ at first use, pure Python without one)
-  pipeline   the resident stage drivers (streaming is not ported yet)
-  kernels/   the device stages; K1-K6 are CUDA C++ kernels for sm_90a
+  pipeline   the stages F, T, C, D, resident and (above 256 MiB) streaming
+  kernels/   the device stages; K1-K7 are CUDA C++ kernels for sm_90a
              (kernels/csrc/), each beside its plain PyTorch version
   device     TorchBackend: batching, routing, the fused F->C and D tiers
   cli        python -m shafa_tpu_torch, flag-compatible with shafa_tpu

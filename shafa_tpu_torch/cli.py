@@ -12,8 +12,11 @@ Differences from the JAX package's CLI:
   * the device is CUDA unless SHAFA_TORCH_DEVICE names another (``cpu`` in
     the tests); without CUDA and without that variable the CLI exits 1 with
     "CUDA device not available";
-  * inputs above the streaming threshold (256 MiB, pipeline.STREAM_THRESHOLD),
-    ``--profile`` and multi-host runs are refused until ported.
+  * ``--profile`` and multi-host runs are refused until ported.
+
+Inputs above pipeline.STREAM_THRESHOLD (256 MiB, or SHAFA_STREAM_THRESHOLD)
+take the streaming pipelines, as in the JAX package: the pipeline branches to
+them, with no check here.
 
 Defaulting (shafa.c:293-305): with no -m, a .shaf input runs D only, anything
 else runs F+T+C; with no -b the block size is 64 KiB. Module-chain legality,
@@ -223,15 +226,6 @@ def _make_backend(opts):
     return backend
 
 
-def _streaming(path: str) -> bool:
-    """True (after saying so) when path needs the streaming pipelines,
-    which are not ported yet."""
-    if pipeline._over_stream_threshold(path):
-        print(pipeline.STREAMING_NOT_PORTED, file=sys.stderr)
-        return True
-    return False
-
-
 def execute_modules(opts, path: str,
                     reports: list[StageReport] | None = None) -> int:
     """Mirror of shafa_tpu/cli.py:226-397 (the reference's execute_modules,
@@ -241,8 +235,6 @@ def execute_modules(opts, path: str,
     decompressed = False
 
     if opts.module_f and opts.module_t and opts.module_c:
-        if _streaming(path):
-            return Code.OUTSIDE_MODULE
         try:
             path, reps = pipeline.compress_pipeline(
                 path, opts.f_force_rle, opts.f_force_freq, opts.block_size,
@@ -268,8 +260,6 @@ def execute_modules(opts, path: str,
                                    module_c=False)
 
     if opts.module_f:
-        if _streaming(path):
-            return Code.OUTSIDE_MODULE
         try:
             path, rep = pipeline.module_f(
                 path, opts.f_force_rle, opts.f_force_freq, opts.block_size,
@@ -340,8 +330,6 @@ def execute_modules(opts, path: str,
                        and (file_rle_shaf
                             or formats.check_ext(
                                 path, formats.RLE_EXT + formats.SHAFA_EXT)))
-                if _streaming(path):
-                    return Code.OUTSIDE_MODULE
                 try:
                     path, rep = pipeline.module_d_shafa(path, rle, backend)
                 except ShafaError as e:
@@ -356,8 +344,6 @@ def execute_modules(opts, path: str,
             if not formats.check_ext(path, formats.RLE_EXT):
                 print(f"Module d: Wrong extension... Should end in "
                       f"{formats.RLE_EXT}", file=sys.stderr)
-                return Code.OUTSIDE_MODULE
-            if _streaming(path):
                 return Code.OUTSIDE_MODULE
             try:
                 path, rep = pipeline.module_d_rle(path, backend)

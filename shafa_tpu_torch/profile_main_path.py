@@ -2,13 +2,16 @@
 
     python -m shafa_tpu_torch.profile_main_path [--bytes N] [--runs R]
                                                 [--corpus mixed|text]
+                                                [--block m|M]
                                                 [--trace-dir DIR]
 
 Writes a seeded corpus of N bytes (default 200,000,000; one of the two that
 chip_smoke.py uses: the synthetic mix, whose codes have at most 16 bits, or
 the text with rare bytes, whose blocks have codes of 17-32 bits) and drives
-the CLI round trip at -b m,
-``cli.main([path, "-b", "m"])`` then ``cli.main([path + ".rle.shaf"])``:
+the CLI round trip at -b m (or --block M: 64 MiB blocks),
+``cli.main([path, "-b", "m"])`` then ``cli.main([path + ".rle.shaf"])``.
+Above pipeline.STREAM_THRESHOLD (256 MiB) both directions take the
+streaming pipelines, whose stages and IO waits are timed too:
 
   1. one warm-up round trip, then R untraced ones: wall seconds of each
      compress and decompress;
@@ -73,6 +76,11 @@ STAGES = [
     (kdecode, "rank_planes32"), (kdecode, "fsm32_packs"),
     (kdecode, "emit_packs"), (kdecode, "emit_bits_rows"),
     (kexpand, "rle_expand_sizes"), (kexpand, "rle_expand"),
+    (pipeline, "compress_pipeline_streaming"),
+    (pipeline, "_module_d_shafa_streaming"), (device.TorchBackend, "pack"),
+    (device, "_stack_blocks"), (pipeline._Progress, "save"),
+    (pipeline._Overlap, "take"), (pipeline._Overlap, "write"),
+    (pipeline._Overlap, "drain"),
 ]
 
 #: Chrome-trace categories of work on the device.
@@ -129,13 +137,14 @@ def _sync() -> None:
         torch.cuda.synchronize()
 
 
-def round_trip(path: str, data: bytes) -> tuple[float, float]:
-    """Compress and decompress path through the CLI; wall seconds of each.
-    Leaves path holding data again, and no sidecars."""
+def round_trip(path: str, data: bytes,
+               block: str = "m") -> tuple[float, float]:
+    """Compress and decompress path through the CLI at -b block; wall
+    seconds of each. Leaves path holding data again, and no sidecars."""
     with contextlib.redirect_stdout(io.StringIO()):
         _sync()
         t0 = time.perf_counter()
-        rc_c = cli.main([path, "-b", "m"])
+        rc_c = cli.main([path, "-b", block])
         _sync()
         t1 = time.perf_counter()
         os.rename(path, path + ".orig")
@@ -202,7 +211,8 @@ def device_busy(trace: dict) -> tuple[float, list]:
     return busy_us / 1e6, ops
 
 
-def profiled_round_trip(path: str, data: bytes, trace_dir: str | None):
+def profiled_round_trip(path: str, data: bytes, trace_dir: str | None,
+                        block: str = "m"):
     """One round trip per direction under torch.profiler; prints the busy
     share and the longest device operations of each."""
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -210,7 +220,7 @@ def profiled_round_trip(path: str, data: bytes, trace_dir: str | None):
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     for direction in ("compress", "decompress"):
         with contextlib.redirect_stdout(io.StringIO()):
-            argv = [path, "-b", "m"] if direction == "compress" \
+            argv = [path, "-b", block] if direction == "compress" \
                 else [path + ".rle.shaf"]
             if direction == "decompress":
                 os.rename(path, path + ".orig")
@@ -248,6 +258,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--bytes", type=int, default=200_000_000)
     ap.add_argument("--corpus", choices=("mixed", "text"), default="mixed")
     ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--block", choices=("m", "M"), default="m",
+                    help="-b of the compress: 8 MiB or 64 MiB blocks")
     ap.add_argument("--trace-dir", default=None,
                     help="keep the Chrome traces here")
     args = ap.parse_args(argv)
@@ -261,7 +273,8 @@ def main(argv: list[str] | None = None) -> int:
         smi = "nvidia-smi: not available"
     print(smi)
     print(f"device {device.default_device()}, torch {torch.__version__}, "
-          f"{args.bytes} bytes of the {args.corpus} corpus", flush=True)
+          f"{args.bytes} bytes of the {args.corpus} corpus at -b "
+          f"{args.block}", flush=True)
     work = tempfile.mkdtemp(prefix="shafa_profile_")
     try:
         data = (synthetic(args.bytes, 0) if args.corpus == "mixed"
@@ -270,18 +283,19 @@ def main(argv: list[str] | None = None) -> int:
         with open(path, "wb") as fp:
             fp.write(data)
         mb = args.bytes / 1e6
-        round_trip(path, data)  # warm-up: kernel build, allocator, caches
+        # warm-up: kernel build, allocator, caches
+        round_trip(path, data, args.block)
         for i in range(args.runs):
-            c, d = round_trip(path, data)
+            c, d = round_trip(path, data, args.block)
             print(f"untraced run {i}: compress {c:.4f} s ({mb / c:.1f} MB/s)"
                   f", decompress {d:.4f} s ({mb / d:.1f} MB/s)")
         with stage_timers() as acc:
-            c, d = round_trip(path, data)
+            c, d = round_trip(path, data, args.block)
         print(f"stage-timed run: compress {c:.4f} s, decompress {d:.4f} s;"
               " inclusive seconds per stage (calls):")
         for name, (sec, n) in sorted(acc.items(), key=lambda kv: -kv[1][0]):
             print(f"  {name:40s} {sec:9.4f} s {n:5d}")
-        profiled_round_trip(path, data, args.trace_dir)
+        profiled_round_trip(path, data, args.trace_dir, args.block)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if "jax" in sys.modules:

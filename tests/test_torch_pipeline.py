@@ -159,11 +159,21 @@ def test_cli_refusals(tmp_path, monkeypatch, capsys):
     assert cli.main([path]) == 1
     assert "multi-host" in capsys.readouterr().err
     monkeypatch.delenv("COORDINATOR_ADDRESS")
-    monkeypatch.setattr(pipeline, "STREAM_THRESHOLD", 4096)
-    assert cli.main([path]) == 1
-    assert "streaming (> 256 MiB) is not yet ported" in \
-        capsys.readouterr().err
     assert not os.path.exists(path + ".rle")
+    # above the threshold the CLI streams, and its sidecars are the NumPy
+    # backend's
+    monkeypatch.setattr(pipeline, "STREAM_THRESHOLD", 4096)
+    streamed = []
+    stream = pipeline.compress_pipeline_streaming
+    monkeypatch.setattr(pipeline, "compress_pipeline_streaming",
+                        lambda p, *a: streamed.append(p) or stream(p, *a))
+    ref = _write(str(tmp_path / "g.bin"), mixed(5000, seed=2))
+    assert cli.main([path]) == 0
+    assert cli.main([ref, "--backend", "numpy"]) == 0
+    assert streamed == [path]
+    for ext in (".rle", ".rle.freq", ".rle.cod", ".rle.shaf"):
+        with open(path + ext, "rb") as a, open(ref + ext, "rb") as b:
+            assert a.read() == b.read(), ext
 
 
 def test_per_stage_modules_check_and_no_multithread(tmp_path, monkeypatch,
