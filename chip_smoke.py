@@ -1,6 +1,9 @@
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA card.
 
     python3 chip_smoke.py        (from the repository root, one CUDA card)
+    python3 chip_smoke.py --scale-out    (several cards: build, the 200 MB
+                                          mixed round trip and phase 6's
+                                          multi-host and multi-device parts)
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
@@ -39,7 +42,30 @@ Phases, each fatal on failure:
      K4); no block decoded on the host on either, and neither
      rle.token_starts nor decode.interleave_packs runs (each is replaced
      by a function that raises);
-  6. the streaming path, with the 200 MB corpora freed first: a 1 GiB file
+  6. scale-out and the CLI's extras on the 200 MB mixed corpus, each
+     fatal on failure, with launch counts read around it (on a host with
+     n >= 2 cards, each rank sees half of them and D is n, all real):
+     - multi-host: two processes (multiprocessing spawn) joined over gloo
+       on this one card (COORDINATOR_ADDRESS at a free local port,
+       NUM_PROCESSES=2, PROCESS_ID), each warmed up untimed on a small
+       one-process round trip, then calling ``cli.main([path, "-b",
+       "m"])`` and ``cli.main([path + ".rle.shaf"])``: .rle, .rle.freq,
+       .rle.cod and .rle.shaf equal to those of 5 by SHA-256, the
+       decompress bit-exact, each rank launching K1 (both variants) in its
+       compress and K2, K3, K4 in its decompress, both ranks on one card
+       (the same device uuid); each direction's wall printed;
+     - multi-device: dist.ShardedBackend over [cuda:0, cuda:0] (two worker
+       threads on one card; real multi-GPU is not exercised on a one-card
+       box): ``dryrun.dryrun_multichip(2)``, then the round trip through
+       ``cli.main`` with dist.block_devices giving the two entries, so that
+       the CLI builds the sharded backend; sidecars equal to 5's;
+     - ``--check`` at -b K on the first 4 MiB of the mixed and of the text
+       corpus (the text reaching K5 and K6): bit-exact, and CheckedBackend
+       compared a fused stage with the NumPy oracle in each direction;
+     - ``--profile DIR`` on 20 MB of the mixed corpus at -b m: sidecars
+       equal to an unprofiled run's (timed beside it), bit-exact, and the
+       two traces in DIR name K1's, K2's, K3's and K4's kernels;
+  7. the streaming path, with the 200 MB corpora freed first: a 1 GiB file
      of the mixed corpus (16 blocks of 64 MiB) through
      ``cli.main([path, "-b", "M"])``, which must stream in F, C and D and
      take the R mode; its .rle, .rle.freq, .rle.cod and .rle.shaf against
@@ -57,15 +83,26 @@ Phases, each fatal on failure:
      LUT on the compress's first RLE encode and pack batches, K2 and K3 on
      the decompress's first decode batch, K4 on the first RLE rows of the
      decompress and of the RLE-only decode;
-  7. the decode-stage path: ``shafa_tpu_torch.bench_decode_stages.main``
+  8. the text corpus at -b M: 5 blocks of 64 MiB (335,544,320 bytes)
+     through ``cli.main([path, "-b", "M"])`` and back, F and C streaming
+     (and D, with the threshold lowered to 64 MiB for its 196 MB archive),
+     bit-exact, every block's longest code 17-32 bits, no block decoded on
+     the host, walls and device peaks printed; then K1 LUT on the
+     compress's first pack batch and K5 and K6 on the decompress's first
+     decode batch (one 64 MiB block) against their plain versions, exact
+     and timed; where K6's plain version does not fit the whole row on the
+     card (on an 80 GB H100 it does not), it and K6 take the row's first
+     16 MiB;
+  9. the decode-stage path: ``shafa_tpu_torch.bench_decode_stages.main``
      at its defaults (64 MiB of the synthetic corpus in 8 MiB blocks; K2,
      K7, K1, K3, K4 and its own checks), launch counts read around it;
-  8. the sidecars of a 16 MB mixed and a 16 MB random file at -b K against
+  10. the sidecars of a 16 MB mixed and a 16 MB random file at -b K against
      the same CLI with ``--backend numpy``; no module of shafa_tpu and no
      jax imported in the whole run.
 
 The line before the last holds the kernels' JSON record (``launches`` sums
-the four paths' counts, ``launches_by_path`` keeps each); the last line is
+the counts of the paths of 5-9, ``launches_by_path`` keeps each); the last
+line is
 the device JSON line. Without a CUDA card, or without the repository beside
 it, the script exits 1 and prints no result.
 """
@@ -89,6 +126,21 @@ CORPUS_BYTES = 200_000_000
 #: BASELINE.md's 1 GiB configuration, at -b M (64 MiB blocks)
 STREAM_BYTES = 1 << 30
 SIDECAR_BYTES = 16_000_000
+#: --check runs on this much of each 200 MB corpus, at -b K
+CHECK_BYTES = 4 << 20
+#: --profile runs on this much of the mixed corpus, at -b m (3 blocks)
+PROFILE_BYTES = 20_000_000
+#: the text corpus at -b M: 5 blocks of 64 MiB, above the 256 MiB streaming
+#: threshold
+TEXT_STREAM_BLOCKS = 5
+TEXT_STREAM_BYTES = TEXT_STREAM_BLOCKS * (64 << 20)
+#: pipeline.STREAM_THRESHOLD for that file's decompress: its .rle.shaf is
+#: below 256 MiB, and the decompress is to stream too
+TEXT_D_THRESHOLD = 64 << 20
+#: a row's first lanes that a plain version takes where a whole 64 MiB row
+#: does not fit on the card
+PLAIN_CUT = 16 << 20
+RLE_EXTS = (".rle", ".rle.freq", ".rle.cod", ".rle.shaf")
 SEED = 0
 BLOCK = 8 << 20
 
@@ -124,7 +176,29 @@ PATH_KERNELS = {
                   "expand_sizes", "expand"),
     "decode_stages": ("fsm_packs", "rank", "fsm_decode", "expand_sizes",
                       "expand", "emit_bits"),
+    "multihost": ("emit_bits", "emit_coded", "rank", "fsm_decode",
+                  "expand_sizes", "expand"),
+    "multidevice": ("emit_bits", "emit_coded", "rank", "fsm_decode",
+                    "expand_sizes", "expand"),
+    "check": ("emit_bits", "emit_coded", "rank", "fsm_decode", "rank32",
+              "fsm32", "expand_sizes", "expand"),
+    "profile": ("emit_bits", "emit_coded", "rank", "fsm_decode",
+                "expand_sizes", "expand"),
+    "text_stream": ("emit_bits", "emit_coded", "rank32", "fsm32",
+                    "expand_sizes", "expand"),
 }
+
+#: Kernels each rank of the multi-host run must launch, per direction.
+RANK_KERNELS = {"compress": ("emit_bits", "emit_coded"),
+                "decompress": ("rank", "fsm_decode", "expand_sizes",
+                               "expand")}
+
+#: Decode kernels each corpus's --check round trip must launch.
+CHECK_KERNELS = {"mixed": ("rank", "fsm_decode"), "text": ("rank32", "fsm32")}
+
+#: A name in the --profile trace of each kernel of the mixed path.
+TRACE_KERNELS = {"K1": "emit_tiles", "K2": "rank_lut", "K3": "fsm16_tile",
+                 "K4": "expand_tiles"}
 
 
 def fail(msg: str) -> None:
@@ -735,6 +809,7 @@ def main_path(work: str, name: str, data: bytes) -> dict:
         run_cli([path + ".rle.shaf"], log)
         t3 = time.perf_counter()
     launches = dict(_build.launches)
+    sidecars = {e: sha256(path + e) for e in RLE_EXTS}
     with open(path, "rb") as fp:
         if fp.read() != data:
             fail(f"{name}: the 200 MB round trip is not bit-exact")
@@ -752,7 +827,8 @@ def main_path(work: str, name: str, data: bytes) -> dict:
     return dict(launches=launches, compress_s=t1 - t0, decompress_s=t3 - t2,
                 shaf_bytes=os.path.getsize(path + ".rle.shaf"),
                 blocks=len(maxlen), maxlen=(int(maxlen.min()),
-                                            int(maxlen.max())))
+                                            int(maxlen.max())),
+                sidecars=sidecars)
 
 
 def sha256(path: str) -> str:
@@ -988,6 +1064,538 @@ def stream_kernel_phase(args: dict, dev) -> list[dict]:
     return results
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def patched(owner, name, value):
+    """owner.name set to value while the block runs."""
+    saved = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, saved)
+
+
+def multihost_rank(rank: int, path: str, ports, barrier, results,
+                   repo: str, visible: str | None) -> None:
+    """One of multihost_path's two processes (started by spawn): after an
+    untimed one-process warm-up, the CLI's compress of path, then its
+    decompress, each a multi-host run joined over gloo at its own port;
+    launch counts read around each. Rank 0 moves the input aside between
+    the two, while rank 1 waits at the barrier. visible, where given, is
+    the rank's CUDA_VISIBLE_DEVICES."""
+    if visible is not None:
+        os.environ["CUDA_VISIBLE_DEVICES"] = visible
+    sys.path.insert(0, repo)
+    import torch
+    from shafa_tpu_torch import cli
+    from shafa_tpu_torch.device import TorchBackend
+    from shafa_tpu_torch.kernels import _build
+
+    from shafa_tpu_torch.profile_main_path import synthetic
+
+    _build.library()
+    props = torch.cuda.get_device_properties(0)
+    uuids = [str(torch.cuda.get_device_properties(i).uuid)
+             for i in range(torch.cuda.device_count())]
+    # warm-up, untimed: a one-process round trip of a small file on the
+    # rank's cards, as the one-process run it is compared with is warm
+    warm = f"{path}.warm{rank}"
+    with open(warm, "wb") as fp:
+        fp.write(synthetic(PROFILE_BYTES, rank))
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main([warm, "-b", "m"]) or cli.main([warm + ".rle.shaf"])
+    for f in [warm] + [warm + e for e in RLE_EXTS]:
+        if os.path.exists(f):
+            os.remove(f)
+    if rc:
+        results.put((rank, "warm-up", dict(rc=rc)))
+        return
+    os.environ.update(NUM_PROCESSES="2", PROCESS_ID=str(rank))
+    for step, argv, port in (("compress", [path, "-b", "m"], ports[0]),
+                             ("decompress", [path + ".rle.shaf"], ports[1])):
+        os.environ["COORDINATOR_ADDRESS"] = f"127.0.0.1:{port}"
+        barrier.wait()
+        _build.reset_launches()
+        TorchBackend.host_decoded_blocks = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        results.put((rank, step, dict(
+            rc=rc, s=time.perf_counter() - t0,
+            launches=dict(_build.launches),
+            host_decoded=TorchBackend.host_decoded_blocks,
+            card=props.name, uuids=uuids)))
+        if rc:
+            return
+        barrier.wait()
+        if step == "compress" and rank == 0:
+            os.rename(path, path + ".orig")
+
+
+def multihost_path(work: str, data: bytes, want: dict,
+                   visible=None) -> dict:
+    """The 200 MB mixed corpus through ``cli.main([path, "-b", "m"])`` and
+    back in two processes joined over gloo: both on the one card, or, with
+    visible (two CUDA_VISIBLE_DEVICES values), each on its own cards. Their
+    sidecars must equal the one-process run's (want: SHA-256 by
+    extension), the decompress must be bit-exact, and each rank must have
+    launched its direction's kernels."""
+    import multiprocessing as mp
+    import queue
+
+    path = os.path.join(work, "mh.bin")
+    with open(path, "wb") as fp:
+        fp.write(data)
+    ctx = mp.get_context("spawn")
+    barrier = ctx.Barrier(2, timeout=300)
+    results = ctx.Queue()
+    ports = (free_port(), free_port())
+    procs = [ctx.Process(target=multihost_rank, args=(
+        rank, path, ports, barrier, results,
+        os.path.dirname(os.path.abspath(__file__)),
+        None if visible is None else visible[rank])) for rank in (0, 1)]
+    got = {}
+    t_start = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        while len(got) < 4:
+            try:
+                rank, step, res = results.get(timeout=5)
+            except queue.Empty:
+                for rank, p in enumerate(procs):
+                    if not p.is_alive() and (rank, "decompress") not in got:
+                        fail(f"multihost: rank {rank} ended with "
+                             f"{p.exitcode} before its results")
+                if time.perf_counter() - t_start > 900:
+                    fail("multihost: the two ranks took over 900 s")
+                continue
+            got[rank, step] = res
+            if res["rc"]:
+                fail(f"multihost: rank {rank}'s {step} exited {res['rc']}")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    for e in RLE_EXTS:
+        if sha256(path + e) != want[e]:
+            fail(f"multihost: {e} differs from the one-process run's")
+    if sha256(path) != hashlib.sha256(data).hexdigest():
+        fail("multihost: the two-rank round trip is not bit-exact")
+    launches = {}
+    for (rank, step), res in got.items():
+        missing = [k for k in RANK_KERNELS[step] if res["launches"][k] < 1]
+        if missing:
+            fail(f"multihost: rank {rank} launched no {missing} in its "
+                 f"{step}: {res['launches']}")
+        if res["host_decoded"]:
+            fail(f"multihost: rank {rank} decoded {res['host_decoded']} "
+                 "blocks on the host")
+        for k, n in res["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    ranks = [got[r, "compress"]["uuids"] for r in (0, 1)]
+    if visible is None and ranks[0] != ranks[1]:
+        fail(f"multihost: the ranks ran on {ranks}, not on one card")
+    if visible is not None and set(ranks[0]) & set(ranks[1]):
+        fail(f"multihost: the ranks shared cards: {ranks}")
+    for f in (path, path + ".orig") + tuple(path + e for e in RLE_EXTS):
+        os.remove(f)
+    return dict(launches=launches,
+                walls={step: [got[r, step]["s"] for r in (0, 1)]
+                       for step in ("compress", "decompress")},
+                card=got[0, "compress"]["card"], uuids=ranks,
+                by_rank={f"{r} {s}": got[r, s]["launches"] for r, s in got})
+
+
+def multidevice_path(work: str, data: bytes, want: dict, devs) -> dict:
+    """dist.ShardedBackend over devs, or over every visible card where devs
+    is None: the dry run (shafa_tpu_torch.dryrun.dryrun_multichip), then
+    the 200 MB mixed corpus through ``cli.main([path, "-b", "m"])`` and
+    back. With devs given (two entries that are both the one card),
+    dist.block_devices gives them, so that the CLI builds the sharded
+    backend as it does on a host with several cards. Sidecars equal to the
+    one-device run's by SHA-256, bit-exact, launch counts read around the
+    round trip."""
+    import torch
+    from shafa_tpu_torch import dist, dryrun
+    from shafa_tpu_torch.device import TorchBackend
+    from shafa_tpu_torch.kernels import _build, decode, rle
+
+    block_devices = dist.block_devices
+    n_devices = len(devs or block_devices())
+    t0 = time.perf_counter()
+    dryrun.dryrun_multichip(n_devices, devices=devs)
+    dry_s = time.perf_counter() - t0
+    path = os.path.join(work, "md.bin")
+    with open(path, "wb") as fp:
+        fp.write(data)
+    made = []
+    make = dist.make_backend
+
+    def make_recorded(*args, **kwargs):
+        made.append(make(*args, **kwargs))
+        return made[-1]
+    TorchBackend.host_decoded_blocks = 0
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    with patched(dist, "block_devices",
+                 lambda devices=None: devs or block_devices(devices)), \
+            patched(dist, "make_backend", make_recorded), \
+            refused((rle, "token_starts"), (decode, "interleave_packs")):
+        t0 = time.perf_counter()
+        run_cli([path, "-b", "m"], io.StringIO())
+        t1 = time.perf_counter()
+        os.rename(path, path + ".orig")
+        t2 = time.perf_counter()
+        run_cli([path + ".rle.shaf"], io.StringIO())
+        t3 = time.perf_counter()
+    launches = dict(_build.launches)
+    for b in made:
+        b.close()
+    if [(type(b).__name__, len(b.devices)) for b in made] \
+            != [("ShardedBackend", n_devices)] * 2:
+        fail(f"multidevice: the CLI built {made}")
+    for e in RLE_EXTS:
+        if sha256(path + e) != want[e]:
+            fail(f"multidevice: {e} differs from the one-device run's")
+    if sha256(path) != hashlib.sha256(data).hexdigest():
+        fail("multidevice: the D=2 round trip is not bit-exact")
+    missing = [k for k in PATH_KERNELS["multidevice"] if launches[k] < 1]
+    if missing:
+        fail(f"multidevice: {missing} not launched: {launches}")
+    if TorchBackend.host_decoded_blocks:
+        fail("multidevice: blocks decoded on the host")
+    for f in (path, path + ".orig") + tuple(path + e for e in RLE_EXTS):
+        os.remove(f)
+    return dict(launches=launches, dryrun_s=dry_s, compress_s=t1 - t0,
+                decompress_s=t3 - t2,
+                devices=[str(d) for d in made[0].devices])
+
+
+def scale_out(work: str, data: bytes, runs: dict, dev, card: str) -> None:
+    """The multi-host and multi-device phases, held against runs["mixed"]
+    (the one-process round trip of the same data). On one card: two ranks
+    share it, and D=2 is [dev, dev]. On n >= 2 cards: each rank sees half
+    of them, and D is all n."""
+    import torch
+    n = torch.cuda.device_count()
+    one = runs["mixed"]
+    halves = None if n < 2 else [
+        ",".join(map(str, range(n // 2))),
+        ",".join(map(str, range(n // 2, n)))]
+    res = runs["multihost"] = multihost_path(work, data, one["sidecars"],
+                                             halves)
+    w = res["walls"]
+    where = ("both on one card" if halves is None else
+             f"rank 0 on cards {halves[0]}, rank 1 on cards {halves[1]}")
+    print(f"multi-host, 2 ranks joined over gloo, {where} ({res['card']}, "
+          f"device uuids by rank {res['uuids']}) on {card}: mixed 200 MB "
+          f"-b m compress {max(w['compress']):.3f} s (ranks "
+          f"{w['compress'][0]:.3f} / {w['compress'][1]:.3f} s; one process "
+          f"{one['compress_s']:.3f} s), decompress "
+          f"{max(w['decompress']):.3f} s (ranks {w['decompress'][0]:.3f} / "
+          f"{w['decompress'][1]:.3f} s; one process "
+          f"{one['decompress_s']:.3f} s); .rle, .rle.freq, .rle.cod, "
+          ".rle.shaf equal to the one-process run's by SHA-256, round trip "
+          f"bit-exact, launches by rank and direction {res['by_rank']}",
+          flush=True)
+    res = runs["multidevice"] = multidevice_path(
+        work, data, one["sidecars"], [dev, dev] if n < 2 else None)
+    what = (f"D=2 on one card (two worker threads on {dev}; real multi-GPU "
+            "is not exercised on a one-card box)" if n < 2 else
+            f"D={n} on {n} cards")
+    print(f"multi-device {what}, dist.ShardedBackend over {res['devices']} "
+          f"on {card}: dryrun_multichip {res['dryrun_s']:.3f} s; mixed "
+          f"200 MB -b m compress {res['compress_s']:.3f} s (one device "
+          f"{one['compress_s']:.3f} s), decompress {res['decompress_s']:.3f} "
+          f"s (one device {one['decompress_s']:.3f} s); sidecars equal to "
+          "the one-device run's by SHA-256, round trip bit-exact, launches "
+          f"{res['launches']}", flush=True)
+
+
+def check_path(work: str, corpora: dict) -> dict:
+    """``cli.main([path, "-b", "K", "--check"])`` and back on the first
+    CHECK_BYTES of the mixed and of the text corpus: bit-exact, and
+    pipeline.CheckedBackend compared at least one fused stage with the
+    NumPy oracle in each direction; the text reaches K5 and K6."""
+    from shafa_tpu_torch import pipeline
+    from shafa_tpu_torch.kernels import _build
+
+    stages = []
+    cmp = pipeline.CheckedBackend._cmp
+
+    def cmp_recorded(self, stage, got, want):
+        stages.append(stage)
+        return cmp(self, stage, got, want)
+    launches, walls = {}, {}
+    with patched(pipeline.CheckedBackend, "_cmp", cmp_recorded):
+        for name, need in CHECK_KERNELS.items():
+            data = corpora[name][:CHECK_BYTES]
+            path = os.path.join(work, f"check_{name}.bin")
+            with open(path, "wb") as fp:
+                fp.write(data)
+            _build.reset_launches()
+            seen = []
+            for argv in ([path, "-b", "K", "--check"], None):
+                if argv is None:
+                    os.rename(path, path + ".orig")
+                    shaf = [path + e for e in (".rle.shaf", ".shaf")
+                            if os.path.isfile(path + e)][0]
+                    argv = [shaf, "--check"]
+                stages.clear()
+                t0 = time.perf_counter()
+                run_cli(argv, io.StringIO())
+                walls[name, "decompress" if seen else "compress"] = \
+                    time.perf_counter() - t0
+                seen.append(sorted(set(stages)))
+            with open(path, "rb") as fp:
+                if fp.read() != data:
+                    fail(f"check {name}: the --check round trip is not "
+                         "bit-exact")
+            if not any(s.startswith("fused_") for s in seen[0]) \
+                    or "fused_decode" not in seen[1]:
+                fail(f"check {name}: CheckedBackend compared {seen}")
+            missing = [k for k in need if _build.launches[k] < 1]
+            if missing:
+                fail(f"check {name}: {missing} not launched: "
+                     f"{_build.launches}")
+            for k, n in _build.launches.items():
+                launches[k] = launches.get(k, 0) + n
+            print(f"--check {name} {len(data)} bytes -b K on the card: "
+                  f"compress {walls[name, 'compress']:.3f} s (compared "
+                  f"{', '.join(seen[0])}), decompress "
+                  f"{walls[name, 'decompress']:.3f} s (compared "
+                  f"{', '.join(seen[1])}), bit-exact, launches "
+                  f"{dict(_build.launches)}", flush=True)
+            for f in os.listdir(work):
+                if f.startswith(f"check_{name}.bin"):
+                    os.remove(os.path.join(work, f))
+    return dict(launches=launches, walls=walls)
+
+
+def profile_path(work: str, data: bytes) -> dict:
+    """``cli.main([path, "-b", "m", "--profile", DIR])`` and back on
+    PROFILE_BYTES of the mixed corpus: sidecars equal to an unprofiled
+    run's, bit-exact, and the traces in DIR name K1-K4's kernels. The
+    unprofiled round trip of the same bytes is timed beside it."""
+    import torch
+    from shafa_tpu_torch.kernels import _build
+
+    data = data[:PROFILE_BYTES]
+    path = os.path.join(work, "prof.bin")
+    ref = os.path.join(work, "prof_ref.bin")
+    trace_dir = os.path.join(work, "traces")
+    for p in (path, ref):
+        with open(p, "wb") as fp:
+            fp.write(data)
+    launches, walls, plain_walls = {}, {}, {}
+    for step, argv in (("compress", [ref, "-b", "m"]),
+                       ("decompress", [ref + ".rle.shaf"])):
+        if step == "decompress":
+            os.rename(ref, ref + ".orig")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_cli(argv, io.StringIO())
+        plain_walls[step] = time.perf_counter() - t0
+    os.rename(ref + ".orig", ref)
+    for step, argv in (("compress", [path, "-b", "m"]),
+                       ("decompress", [path + ".rle.shaf"])):
+        if step == "decompress":
+            for e in RLE_EXTS:
+                if sha256(path + e) != sha256(ref + e):
+                    fail(f"profile: {e} differs from an unprofiled run's")
+            os.rename(path, path + ".orig")
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_cli(argv + ["--profile", trace_dir], io.StringIO())
+        walls[step] = time.perf_counter() - t0
+        for k, n in _build.launches.items():
+            launches[k] = launches.get(k, 0) + n
+    with open(path, "rb") as fp:
+        if fp.read() != data:
+            fail("profile: the profiled round trip is not bit-exact")
+    traces = sorted(f for f in os.listdir(trace_dir)
+                    if f.endswith(".pt.trace.json"))
+    if len(traces) != 2:
+        fail(f"profile: {traces} in the trace directory, not two traces")
+    names = set()
+    for t in traces:
+        with open(os.path.join(trace_dir, t)) as fp:
+            names.update(ev.get("name", "") for ev in
+                         json.load(fp)["traceEvents"]
+                         if ev.get("cat") == "kernel")
+    found = {k: sum(sub in n for n in names)
+             for k, sub in TRACE_KERNELS.items()}
+    if not all(found.values()):
+        fail(f"profile: the traces name no kernel of "
+             f"{[k for k, n in found.items() if not n]}")
+    missing = [k for k in PATH_KERNELS["profile"] if launches[k] < 1]
+    if missing:
+        fail(f"profile: {missing} not launched: {launches}")
+    size = sum(os.path.getsize(os.path.join(trace_dir, t)) for t in traces)
+    shutil.rmtree(trace_dir)
+    for f in os.listdir(work):
+        if f.startswith("prof"):
+            os.remove(os.path.join(work, f))
+    return dict(launches=launches, walls=walls, plain_walls=plain_walls,
+                traces=len(traces), trace_bytes=size,
+                kernel_names=len(names))
+
+
+def text_stream_path(work: str) -> dict:
+    """The text corpus at -b M above the streaming threshold:
+    TEXT_STREAM_BYTES through ``cli.main([path, "-b", "M"])`` and back.
+    F, C and D must stream (D with pipeline.STREAM_THRESHOLD at
+    TEXT_D_THRESHOLD, the archive being smaller than the input), every
+    block's longest code must be 17-32 bits
+    (K5 -> K6 -> K1 in the decompress), no block decoded on the host, the
+    round trip bit-exact; walls and device peaks kept. The arguments of
+    the compress's first pack batch and the decompress's first 17-32-bit
+    decode batch are kept on the host for text_kernel_phase."""
+    import torch
+    from shafa_tpu_torch import formats, pipeline
+    from shafa_tpu_torch.device import TorchBackend
+    from shafa_tpu_torch.kernels import _build, decode, pack, rle
+    from shafa_tpu_torch.profile_main_path import text_with_rare_bytes
+
+    path = os.path.join(work, "text_stream.bin")
+    t0 = time.perf_counter()
+    data = text_with_rare_bytes(TEXT_STREAM_BYTES)
+    make_s = time.perf_counter() - t0
+    want = hashlib.sha256(data).hexdigest()
+    with open(path, "wb") as fp:
+        fp.write(data)
+    del data
+    launches, walls, peaks = {}, {}, {}
+    TorchBackend.host_decoded_blocks = 0
+    with refused((rle, "token_starts"), (decode, "interleave_packs")), \
+            recorded(pipeline, "compress_pipeline_streaming",
+                     "_module_d_shafa_streaming") as calls, \
+            captured((pack, "pack_batch"),
+                     (decode, "decode_batch32")) as (args, arm):
+        for step, argv, threshold in (
+                ("compress", [path, "-b", "M"], pipeline.STREAM_THRESHOLD),
+                ("decompress", [path + ".rle.shaf"], TEXT_D_THRESHOLD)):
+            if step == "decompress":
+                os.remove(path)
+            arm(step)
+            _build.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with patched(pipeline, "STREAM_THRESHOLD", threshold):
+                run_cli(argv, io.StringIO())
+            torch.cuda.synchronize()
+            walls[step] = time.perf_counter() - t0
+            peaks[step] = torch.cuda.max_memory_allocated()
+            for k, n in _build.launches.items():
+                launches[k] = launches.get(k, 0) + n
+        arm(None)
+    (rep,) = calls["compress_pipeline_streaming"] or [None]
+    (rep_d,) = calls["_module_d_shafa_streaming"] or [None]
+    if rep is None or not rep[0].extra.get("streaming") \
+            or not rep[0].extra["compress_rle"]:
+        fail("text -b M: the compress did not stream in the R mode")
+    if rep_d is None or not rep_d.extra.get("streaming"):
+        fail("text -b M: the decompress did not stream")
+    if sha256(path) != want:
+        fail("text -b M: the round trip is not bit-exact")
+    with open(path + ".rle.cod", "rb") as fp:
+        _, _, tables = formats.parse_cod_tables(fp.read())
+    maxlen = tables.lens.max(axis=1)
+    if len(maxlen) != TEXT_STREAM_BLOCKS or not (
+            16 < int(maxlen.min()) <= int(maxlen.max()) <= 32):
+        fail(f"text -b M: longest codes {maxlen.tolist()}, not 17-32 bits "
+             "in every 64 MiB block")
+    missing = [k for k in PATH_KERNELS["text_stream"] if launches[k] < 1]
+    if missing:
+        fail(f"text -b M: {missing} not launched: {launches}")
+    if TorchBackend.host_decoded_blocks:
+        fail(f"text -b M: {TorchBackend.host_decoded_blocks} blocks decoded "
+             "on the host")
+    sizes = {e: os.path.getsize(path + e) for e in RLE_EXTS}
+    for f in (path,) + tuple(path + e for e in RLE_EXTS):
+        os.remove(f)
+    return dict(launches=launches, walls=walls, peaks=peaks, sizes=sizes,
+                maxlen=maxlen.tolist(), make_s=make_s, args=args)
+
+
+def text_kernel_phase(args: dict, dev) -> list[dict]:
+    """K1 LUT, K5 and K6 against their plain versions on the arguments the
+    text -b M path gave them: K1 LUT on the compress's first pack batch,
+    K5 and K6 on the decompress's first decode batch (one 64 MiB block,
+    codes of 17-32 bits). Where a plain version does not fit the whole row
+    on the card, the kernel and it take the row's first PLAIN_CUT lanes."""
+    import torch
+    from shafa_tpu_torch.kernels import decode, emit
+
+    def on_card(key):
+        if key not in args:
+            fail(f"text -b M: {key[1]} was not called in the {key[0]} step")
+        return [a.to(dev) if isinstance(a, torch.Tensor) else a
+                for a in args[key]]
+
+    results = []
+    pack_args = on_card(("compress", "pack_batch"))
+    r = compare("K1 emit_coded at the text -b M shapes",
+                lambda: emit.emit_coded(*pack_args),
+                lambda: emit.emit_coded_plain(*pack_args),
+                int(pack_args[1].sum()) + nbytes(*pack_args[1:5])
+                + 4 * pack_args[5], lambda flat: [flat])
+    results.append(dict(name="emit_coded", shape=list(pack_args[0].shape),
+                        **r))
+    del pack_args
+    px, pl, pc32, ls, ncodes, lut, cnt, _ = on_card(("decompress",
+                                                     "decode_batch32"))
+    k5 = (pc32, ls, ncodes, lut)
+    payload = int(pl.sum())
+    r = compare("K5 rank32 at the text -b M shapes",
+                lambda: decode.rank_planes32(px, pl, *k5),
+                lambda: decode.rank_planes32_plain(px, *k5[:3]),
+                33 * payload + nbytes(*k5), below_payload(pl))
+    results.append(dict(name="rank32", shape=list(px.shape), **r))
+    planes = decode.rank_planes32(px, pl, *k5)
+    b, p = px.shape
+    del px
+    for lanes in (p, PLAIN_CUT):
+        sub = planes if lanes == p else planes.reshape(8, b, p)[
+            :, :, :lanes].reshape(8, b * lanes).contiguous()
+        sub_pl = pl.clamp(max=lanes)
+        try:
+            r = compare("K6 fsm32 at the text -b M shapes",
+                        lambda: decode.fsm32_packs(sub, sub_pl, cnt),
+                        lambda: decode.fsm32_packs_plain(sub, sub_pl, cnt),
+                        48 * int(sub_pl.sum()) + nbytes(sub_pl, cnt) + b,
+                        lambda t: list(t))
+        except torch.cuda.OutOfMemoryError:
+            r = None
+        del sub
+        torch.cuda.empty_cache()
+        if r is not None:
+            results.append(dict(name="fsm32", shape=[b, lanes], **r))
+            break
+        print(f"K6's plain version does not fit a ({b}, {p}) row on the "
+              f"card: kernel and plain version on its first {PLAIN_CUT} "
+              "lanes", flush=True)
+    else:
+        fail("K6's plain version fits no cut of the text -b M row")
+    del planes
+    torch.cuda.empty_cache()
+    return results
+
+
 def decode_stages_path() -> dict:
     """The port of bench_decode_stages.py at its defaults, in process, with
     the launch counts read around it."""
@@ -1044,7 +1652,39 @@ def foreign_modules() -> list[str]:
                   if m.split(".")[0] in ("shafa_tpu", "jax", "jaxlib"))
 
 
-def main() -> int:
+def device_line() -> str:
+    import torch
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+
+
+def scale_out_only(dev, card: str) -> int:
+    """``chip_smoke.py --scale-out``: the one-process 200 MB mixed round
+    trip and the scale-out phases alone, for a host with several cards."""
+    from shafa_tpu_torch.profile_main_path import synthetic
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    runs = {}
+    try:
+        data = synthetic(CORPUS_BYTES, SEED)
+        main_path(work, "mixed", data)  # warm-up: the card's first work
+        res = runs["mixed"] = main_path(work, "mixed", data)
+        print(f"main path mixed 200 MB -b m on {card}: compress "
+              f"{res['compress_s']:.3f} s, decompress "
+              f"{res['decompress_s']:.3f} s, bit-exact", flush=True)
+        scale_out(work, data, runs, dev, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if foreign_modules():
+        fail(f"imported: {foreign_modules()}")
+    print(device_line(), flush=True)
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--scale-out"]):
+        fail(f"unknown arguments {argv}: none, or --scale-out")
     try:
         import torch
     except ImportError:
@@ -1085,9 +1725,11 @@ def main() -> int:
             "loads" for name, (regs, st, ld) in sorted(res.items())),
             flush=True)
 
+    dev = torch.device("cuda", 0)
+    if argv:
+        return scale_out_only(dev, card)
     from shafa_tpu_torch.profile_main_path import (synthetic,
                                                    text_with_rare_bytes)
-    dev = torch.device("cuda", 0)
     corpora = {"mixed": synthetic(CORPUS_BYTES, SEED),
                "text": text_with_rare_bytes(CORPUS_BYTES)}
     kernels = kernel_phase(corpora["mixed"], dev)
@@ -1127,6 +1769,20 @@ def main() -> int:
                 <= 32:
             fail(f"text: longest codes {runs['text']['maxlen']}, not all "
                  "17-32 bits")
+        scale_out(work, corpora["mixed"], runs, dev, card)
+        runs["check"] = check_path(work, corpora)
+        res = runs["profile"] = profile_path(work, corpora["mixed"])
+        pw = res["plain_walls"]
+        print(f"--profile on {card}: mixed {PROFILE_BYTES} bytes -b m "
+              f"compress {res['walls']['compress']:.3f} s, decompress "
+              f"{res['walls']['decompress']:.3f} s under torch.profiler "
+              f"(unprofiled, just before: {pw['compress']:.3f} s, "
+              f"{pw['decompress']:.3f} s); "
+              f"sidecars equal to an unprofiled run's, bit-exact; "
+              f"{res['traces']} traces ({res['trace_bytes']} bytes) naming "
+              f"{res['kernel_names']} kernels, K1-K4's among them "
+              f"({', '.join(TRACE_KERNELS.values())}); launches "
+              f"{res['launches']}", flush=True)
         del corpora, data
         res = runs["streaming"] = streaming_path(work)
         mb = STREAM_BYTES / 1e6
@@ -1151,6 +1807,24 @@ def main() -> int:
                   f"{k['shape']} kernel {k['ms']:.3f} ms, plain "
                   f"{k['plain_ms']:.3f} ms, bound {k['bound_ms']:.3f} ms, "
                   "exact", flush=True)
+        res = runs["text_stream"] = text_stream_path(work)
+        mb = TEXT_STREAM_BYTES / 1e6
+        w, pk = res["walls"], res["peaks"]
+        print(f"text -b M, {TEXT_STREAM_BYTES} bytes (built in "
+              f"{res['make_s']:.1f} s) on {card}: "
+              f"{len(res['maxlen'])} blocks of 64 MiB with longest codes of "
+              f"{res['maxlen']} bits, compress {mb / w['compress']:.1f} MB/s "
+              f"({w['compress']:.3f} s), decompress "
+              f"{mb / w['decompress']:.1f} MB/s ({w['decompress']:.3f} s), "
+              f".rle.shaf {res['sizes']['.rle.shaf']} bytes; device peak "
+              f"(max_memory_allocated) compress {pk['compress']} B, "
+              f"decompress {pk['decompress']} B; F, C and D streamed, "
+              "bit-exact, every block on K5 -> K6 -> K1, host-decoded "
+              f"blocks 0, launches {res['launches']}", flush=True)
+        for k in text_kernel_phase(res.pop("args"), dev):
+            print(f"{k['name']} at the text -b M shapes: shape {k['shape']} "
+                  f"kernel {k['ms']:.3f} ms, plain {k['plain_ms']:.3f} ms, "
+                  f"bound {k['bound_ms']:.3f} ms, exact", flush=True)
         res = runs["decode_stages"] = decode_stages_path()
         print(f"decode_stages path (bench_decode_stages.main at its "
               f"defaults) on {card}: {res['wall_s']:.1f} s, its checks "
@@ -1174,9 +1848,7 @@ def main() -> int:
                                        "bound_ms", "bound_by",
                                        "library_ms")}))
     print(json.dumps({"kernels": record}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    print(device_line(), flush=True)
     return 0
 
 

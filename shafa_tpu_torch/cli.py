@@ -5,14 +5,27 @@ Flags: <file>  -m f|t|c|d (repeatable)  -b K|m|M  -c r|f  -d s|r
        --no-multithread (one block per device batch, the fused tier off)
 Extra (not in the reference): --backend numpy|torch (default torch),
 --check (cross-verify every device stage against the numpy oracle),
---json PATH|- (structured per-module metrics).
+--json PATH|- (structured per-module metrics), --profile DIR (a
+torch.profiler trace of the run, host activity and, on a CUDA device, the
+card's, written into DIR as TensorBoard's ``*.pt.trace.json``, which
+Perfetto opens too).
 
 Differences from the JAX package's CLI:
   * ``--backend jax`` is a syntax error;
   * the device is CUDA unless SHAFA_TORCH_DEVICE names another (``cpu`` in
     the tests); without CUDA and without that variable the CLI exits 1 with
-    "CUDA device not available";
-  * ``--profile`` and multi-host runs are refused until ported.
+    "CUDA device not available".
+
+Several devices and several processes (shafa_tpu/cli.py:203-209, 215-284):
+  * with more than one visible CUDA device (SHAFA_TORCH_DEVICE unset or
+    ``cuda``) and without --no-multithread, the blocks of every call are
+    spread over all of them (dist.ShardedBackend);
+  * with COORDINATOR_ADDRESS (host:port), NUM_PROCESSES and PROCESS_ID set,
+    or SHAFA_MULTIHOST=1 under torchrun, the process joins a gloo process
+    group (multihost.init_from_env) and the full compress chain and the
+    .shaf decompress run through multihost.py, each process on a contiguous
+    range of the blocks and on its own visible devices. A join that fails
+    exits 1; nothing goes on as a single process.
 
 Inputs above pipeline.STREAM_THRESHOLD (256 MiB, or SHAFA_STREAM_THRESHOLD)
 take the streaming pipelines, as in the JAX package: the pipeline branches to
@@ -31,6 +44,7 @@ import dataclasses
 import json
 import os
 import sys
+import time
 
 from . import formats, geometry, pipeline
 from .errors import Code, ShafaError, error_msg
@@ -86,7 +100,7 @@ def parse(argv: list[str]) -> tuple[Options, str | None] | None:
             if i >= len(argv):
                 return None
             opts.json_path = argv[i]
-        elif key == "--profile":  # extension flag, refused by main
+        elif key == "--profile":  # extension flag, not in the reference
             i += 1
             if i >= len(argv):
                 return None
@@ -216,23 +230,91 @@ def _emit_json(path: str, reports: list[StageReport], error: int) -> None:
 
 
 def _make_backend(opts):
+    """The NumPy backend, or the device backend over the blocks' devices
+    (dist.block_devices: every visible CUDA card, or the one named), one
+    of them with --no-multithread; --check wraps whichever was built."""
     if opts.backend == "numpy":
         backend = pipeline.NumpyBackend()
     else:
-        from .device import TorchBackend
-        backend = TorchBackend(sequential=opts.no_multithread)
+        from . import dist
+        devices = dist.block_devices()
+        if opts.no_multithread:
+            devices = devices[:1]
+        backend = dist.make_backend(devices, sequential=opts.no_multithread)
     if opts.check:
         backend = pipeline.CheckedBackend(backend)
     return backend
 
 
+def _process_count() -> int:
+    """Processes of the torch.distributed run (1 when none was joined)."""
+    tdist = sys.modules.get("torch.distributed")
+    return tdist.get_world_size() if tdist and tdist.is_initialized() else 1
+
+
+def profiler(device_type: str, **kwargs):
+    """torch.profiler.profile over the host's activity and, for a CUDA
+    device, the card's (kwargs go to it). --profile and profile_main_path
+    trace through it."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device_type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=acts, **kwargs)
+
+
+def _execute_multihost(opts, path: str, backend) -> int | None:
+    """The multi-host branch of shafa_tpu/cli.py:215-284: the full
+    compress chain and the .shaf decompress through multihost.py. Every
+    process waits at a barrier for the others' writes before process 0
+    reports. None for other module combinations, which run the one-process
+    path on every process (the same files, written by each)."""
+    from . import multihost
+    comm = multihost.Comm()
+    t0 = time.perf_counter()
+    if opts.module_f and opts.module_t and opts.module_c \
+            and not opts.module_d:
+        try:
+            out = multihost.compress_multihost(
+                path, opts.block_size, backend, comm,
+                force_rle=opts.f_force_rle, force_freq=opts.f_force_freq)
+        except ShafaError as e:
+            print("Module f: Something went wrong while compressing with"
+                  " RLE or creating frequencies' table...", file=sys.stderr)
+            return e.code
+        what = "compress"
+    elif opts.module_d and not (opts.module_f or opts.module_t
+                                or opts.module_c) \
+            and formats.check_ext(path, formats.SHAFA_EXT) \
+            and not opts.d_rle:
+        try:
+            out = multihost.decompress_multihost(path, backend, comm)
+        except ShafaError as e:
+            print("Module d: Something went wrong while decompressing...",
+                  file=sys.stderr)
+            return e.code
+        what = "decompress"
+    else:
+        return None
+    comm.barrier()
+    if comm.index == 0:
+        print(f"Multihost {what} ({comm.count} hosts): {out} in "
+              f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+    return Code.SUCCESS
+
+
 def execute_modules(opts, path: str,
                     reports: list[StageReport] | None = None) -> int:
     """Mirror of shafa_tpu/cli.py:226-397 (the reference's execute_modules,
-    shafa.c:150-259) without the multi-host branch."""
+    shafa.c:150-259)."""
     backend = _make_backend(opts)
     reports = reports if reports is not None else []
     decompressed = False
+
+    if _process_count() > 1 and opts.backend != "numpy" and not opts.check:
+        error = _execute_multihost(opts, path, backend)
+        if error is not None:
+            return error
 
     if opts.module_f and opts.module_t and opts.module_c:
         try:
@@ -370,21 +452,14 @@ def main(argv: list[str] | None = None) -> int:
     if file is None:
         print("No file input", file=sys.stderr)
         return 1
-    if opts.profile_dir:
-        print("--profile is not yet ported", file=sys.stderr)
-        return 1
-    if opts.backend != "numpy" and (os.environ.get("COORDINATOR_ADDRESS")
-                                    or os.environ.get("SHAFA_MULTIHOST")):
-        print("multi-host runs are not yet ported", file=sys.stderr)
-        return 1
+    device_type = "cpu"
     if opts.backend == "torch":
         from .device import DeviceUnavailableError, default_device
         try:
-            default_device()
+            device_type = default_device().type
         except DeviceUnavailableError as e:
             print(e, file=sys.stderr)
             return 1
-
     # Defaulting (shafa.c:293-305).
     if not (opts.module_f or opts.module_t or opts.module_c or opts.module_d):
         if formats.check_ext(file, formats.SHAFA_EXT):
@@ -394,8 +469,28 @@ def main(argv: list[str] | None = None) -> int:
     if not opts.block_size:
         opts.block_size = geometry.CLI_DEFAULT_BLOCK_SIZE
 
+    # Multi-host (shafa_tpu/cli.py:417-420): join when the environment asks.
+    joined = False
+    if opts.backend != "numpy" and (os.environ.get("COORDINATOR_ADDRESS")
+                                    or os.environ.get("SHAFA_MULTIHOST")):
+        from . import multihost
+        try:
+            joined = multihost.init_from_env()
+        except (RuntimeError, ValueError) as e:
+            print(f"multi-host join failed: {e}", file=sys.stderr)
+            return 1
     reports: list[StageReport] = []
-    error = execute_modules(opts, file, reports)
+    try:
+        if opts.profile_dir:
+            import torch
+            with profiler(device_type, on_trace_ready=torch.profiler
+                          .tensorboard_trace_handler(opts.profile_dir)):
+                error = execute_modules(opts, file, reports)
+        else:
+            error = execute_modules(opts, file, reports)
+    finally:
+        if joined:
+            multihost.leave()
     if opts.json_path:
         _emit_json(opts.json_path, reports, error)
     if error:

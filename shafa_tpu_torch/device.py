@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import threading
 
 import numpy as np
 import torch
@@ -181,7 +182,9 @@ class TorchBackend:
 
     #: Blocks decoded on the host by design, over all instances: codes over
     #: 32 bits, overflow tables, no codes, or a table that is not complete.
+    #: Bumped under a lock: dist.ShardedBackend decodes on several threads.
     host_decoded_blocks = 0
+    _host_decoded_lock = threading.Lock()
 
     def __init__(self, device=None, sequential: bool = False):
         self.device = torch.device(device) if device is not None \
@@ -404,20 +407,24 @@ class TorchBackend:
         n_codes = (tables.lens > 0).sum(axis=1)
         complete = _kraft_complete(tables.lens)
         fast16, fast32 = [], []
+        on_host = 0
         for i in range(n_total):
             if i in tables.overflow or maxlen[i] > 32 or n_codes[i] == 0:
-                TorchBackend.host_decoded_blocks += 1
+                on_host += 1
                 dec = host_unpack(payloads[i], tables.row_strings(i),
                                   out_counts[i])
                 results[i] = oracle.rle_expand(dec) if expand else dec
             elif not complete[i]:  # foreign .cod with gaps: trie semantics
-                TorchBackend.host_decoded_blocks += 1
+                on_host += 1
                 results[i] = _slow_decode(payloads[i], tables.row_strings(i),
                                           out_counts[i], expand)
             elif maxlen[i] <= 16:
                 fast16.append(i)
             else:
                 fast32.append(i)
+        if on_host:
+            with TorchBackend._host_decoded_lock:
+                TorchBackend.host_decoded_blocks += on_host
         if fast16:
             self._decode_group(payloads, tables, out_counts, expand, fast16,
                                results, self._decode_batch16)

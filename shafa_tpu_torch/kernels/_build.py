@@ -7,8 +7,10 @@ use, never at import, and lands in ``shafa_tpu_torch/_build/`` (git-ignored)
 under a name keyed on a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads at once; what ``-Xptxas -v`` reports of
 each kernel's registers and spills is kept beside the library
-(``resources``). A failed build or a launch that returns a CUDA error
-raises: nothing falls back.
+(``resources``). Every kernel launches through ``launch``, under its
+tensors' device as the current one and on torch's current stream there,
+so a backend may drive several cards from several threads. A failed build
+or a launch that returns a CUDA error raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-#: Launches per kernel: each wrapper adds one where it launches its kernel.
+#: Launches per kernel: ``launch`` adds one to its kernel's count.
 launches = {"emit_bits": 0, "emit_coded": 0, "rank": 0, "fsm_decode": 0,
             "expand_sizes": 0, "expand": 0, "rank32": 0, "fsm32": 0,
             "fsm_packs": 0}
@@ -57,6 +59,7 @@ _SIGNATURES = {
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
@@ -182,6 +185,19 @@ def stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def launch(kernel: str, device, entry: str, *args) -> None:
+    """Call the C entry point ``entry`` with args and the handle of torch's
+    current stream on device, with device made the current one first (CUDA
+    launches on the calling thread's current device), and add one to
+    launches[kernel]. A returned CUDA error raises."""
+    import torch
+    fn = getattr(library(), entry)
+    with torch.cuda.device(device):
+        with _count_lock:
+            launches[kernel] += 1
+        check(fn(*args, stream(device)), kernel)
+
+
 def ptr(t, dtype, shape, device) -> int:
     """Data pointer of a kernel argument, once it is what the kernel takes."""
     if (t.device != device or t.dtype != dtype
@@ -201,5 +217,6 @@ def check(rc: int, what: str) -> None:
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _count_lock:
+        for k in launches:
+            launches[k] = 0

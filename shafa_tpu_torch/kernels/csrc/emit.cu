@@ -28,6 +28,7 @@
 // never overlap, so the result does not depend on the order of the
 // atomics.
 #include <algorithm>
+#include <atomic>
 
 #include "fsm_common.cuh"
 
@@ -345,27 +346,36 @@ __global__ void __launch_bounds__(THREADS, Shape<LUT>::MIN_BLOCKS)
   }
 }
 
-// Persistent blocks: as many as fit on the card at once, at most one a tile.
-// The look-back's words and the ticket start at 0.
+// Devices whose resident block count launch() keeps; others ask each time.
+constexpr int MAX_DEVICES = 64;
+
+// Persistent blocks: as many as fit on the current device at once, at most
+// one a tile. The count is kept per device (callers may drive several cards
+// from several threads); a race writes the same value twice. The look-back's
+// words and the ticket start at 0.
 template <bool LUT, bool VEC>
 int launch(Args a, cudaStream_t stream) {
-  static int per_sm = 0, sms = 0;
-  if (!per_sm) {
-    int dev = 0;
-    cudaGetDevice(&dev);
+  static std::atomic<int> resident[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int fit = dev < MAX_DEVICES ? resident[dev].load() : 0;
+  if (!fit) {
+    int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm,
                                                   emit_tiles<LUT, VEC>,
                                                   THREADS, 0);
     SHAFA_RETURN_IF_LAUNCH_FAILED();
+    fit = per_sm * sms;
+    if (dev < MAX_DEVICES) resident[dev].store(fit);
   }
   a.n_tiles = (int)((a.p + TILE - 1) / TILE);
   a.total = a.b * a.n_tiles;
   a.ticket = reinterpret_cast<int*>(a.status + a.total);
-  const cudaError_t err =
-      cudaMemsetAsync(a.status, 0, (a.total + 1) * sizeof(u64), stream);
+  err = cudaMemsetAsync(a.status, 0, (a.total + 1) * sizeof(u64), stream);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = std::max(1, std::min(a.total, per_sm * sms));
+  const int blocks = std::max(1, std::min(a.total, fit));
   emit_tiles<LUT, VEC><<<blocks, THREADS, 0, stream>>>(a);
   SHAFA_RETURN_IF_LAUNCH_FAILED();
   return 0;

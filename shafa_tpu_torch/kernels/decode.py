@@ -240,9 +240,8 @@ def rank_planes(payload: torch.Tensor, pc16: torch.Tensor, ls: torch.Tensor,
         raise ValueError("rank_planes: payload and table need 16-byte "
                          "alignment")
     out = torch.empty((8, b * p), dtype=torch.int32, device=dev)
-    _build.launches["rank"] += 1
-    _build.check(lib.shafa_rank_planes(*args, b, p, out.data_ptr(),
-                                       _build.stream(dev)), "rank")
+    _build.launch("rank", dev, "shafa_rank_planes", *args, b, p,
+                  out.data_ptr())
     return out
 
 
@@ -335,11 +334,9 @@ def decode_rows(ls8: torch.Tensor, payload_lens: torch.Tensor,
     dev = ls8.device
     out = torch.zeros((b, out_p), dtype=torch.uint8, device=dev)
     under = torch.empty(b, dtype=torch.int32, device=dev)
-    _build.launches["fsm_decode"] += 1
-    _build.check(_build.library().shafa_fsm_decode(
-        *args, s_states, b, ls8.shape[1] // b,
-        *[t.data_ptr() for t in scratch], out.data_ptr(), out_p,
-        under.data_ptr(), _build.stream(dev)), "fsm_decode")
+    _build.launch("fsm_decode", dev, "shafa_fsm_decode", *args, s_states,
+                  b, ls8.shape[1] // b, *[t.data_ptr() for t in scratch],
+                  out.data_ptr(), out_p, under.data_ptr())
     return out, under.bool()
 
 
@@ -413,9 +410,8 @@ def rank_planes32(payload: torch.Tensor, payload_lens: torch.Tensor,
         raise ValueError("rank_planes32: payload and table need 16-byte "
                          "alignment")
     out = torch.empty((8, b * p), dtype=torch.int32, device=dev)
-    _build.launches["rank32"] += 1
-    _build.check(lib.shafa_rank_planes32(*args, b, p, out.data_ptr(),
-                                         _build.stream(dev)), "rank32")
+    _build.launch("rank32", dev, "shafa_rank_planes32", *args, b, p,
+                  out.data_ptr())
     return out
 
 
@@ -535,10 +531,9 @@ def fsm32_packs(planes: torch.Tensor, payload_lens: torch.Tensor,
     vals = torch.empty((b, 2 * p), dtype=torch.int32, device=dev)
     lens = torch.empty((b, 2 * p), dtype=torch.int32, device=dev)
     under = torch.empty(b, dtype=torch.int32, device=dev)
-    _build.launches["fsm32"] += 1
-    _build.check(lib.shafa_fsm32(
-        *args, b, p, *[t.data_ptr() for t in scratch], vals.data_ptr(),
-        lens.data_ptr(), under.data_ptr(), _build.stream(dev)), "fsm32")
+    _build.launch("fsm32", dev, "shafa_fsm32", *args, b, p,
+                  *[t.data_ptr() for t in scratch], vals.data_ptr(),
+                  lens.data_ptr(), under.data_ptr())
     return vals, lens, under.bool()
 
 
@@ -596,11 +591,9 @@ def fsm_packs(planes: torch.Tensor, payload_lens: torch.Tensor,
     vals = torch.empty((b, 2 * p), dtype=torch.int32, device=dev)
     lens = torch.empty((b, 2 * p), dtype=torch.int32, device=dev)
     under = torch.empty(b, dtype=torch.int32, device=dev)
-    _build.launches["fsm_packs"] += 1
-    _build.check(_build.library().shafa_fsm_packs(
-        *args, s_states, b, p, *[t.data_ptr() for t in scratch],
-        vals.data_ptr(), lens.data_ptr(), under.data_ptr(),
-        _build.stream(dev)), "fsm_packs")
+    _build.launch("fsm_packs", dev, "shafa_fsm_packs", *args, s_states, b,
+                  p, *[t.data_ptr() for t in scratch], vals.data_ptr(),
+                  lens.data_ptr(), under.data_ptr())
     return vals, lens, under.bool()
 
 

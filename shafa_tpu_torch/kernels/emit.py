@@ -111,10 +111,9 @@ def _emit_cuda(b: int, p: int, row_lens, woff, out_words: int, *,
     # look-back words of the (B, n_tiles) tiles, then the ticket
     status = torch.empty(b * n_tiles + 1, dtype=torch.int64, device=dev)
     out = torch.zeros(out_words, dtype=torch.int32, device=dev)
-    _build.launches["emit_coded" if lut else "emit_bits"] += 1
-    _build.check(lib.shafa_emit(
-        *ptrs, int(lut), *rows, b, p, status.data_ptr(), out.data_ptr(),
-        out_words, _build.stream(dev)), "emit")
+    _build.launch("emit_coded" if lut else "emit_bits", dev, "shafa_emit",
+                  *ptrs, int(lut), *rows, b, p, status.data_ptr(),
+                  out.data_ptr(), out_words)
     return out
 
 

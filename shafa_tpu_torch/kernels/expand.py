@@ -82,12 +82,10 @@ def rle_expand_sizes(x: torch.Tensor, lengths: torch.Tensor) -> dict:
                                        device=dev),
                  out_len=torch.empty(b, dtype=torch.int64, device=dev),
                  out_base=torch.empty(b, dtype=torch.int64, device=dev))
-    _build.launches["expand_sizes"] += 1
-    _build.check(lib.shafa_expand_sizes(
-        *args, b, p, sums.data_ptr(),
-        *[sizes[k].data_ptr() for k in ("tile_entry", "tile_base", "out_len",
-                                        "out_base")],
-        _build.stream(dev)), "expand_sizes")
+    _build.launch("expand_sizes", dev, "shafa_expand_sizes", *args, b, p,
+                  sums.data_ptr(),
+                  *[sizes[k].data_ptr() for k in ("tile_entry", "tile_base",
+                                                  "out_len", "out_base")])
     return sizes
 
 
@@ -105,11 +103,9 @@ def rle_expand(sizes: dict, total: int) -> torch.Tensor:
     out = torch.empty(total, dtype=torch.uint8, device=dev)
     if out.data_ptr() % 16:
         raise ValueError("rle_expand: output needs 16-byte alignment")
-    lib = _build.library()
-    _build.launches["expand"] += 1
-    _build.check(lib.shafa_expand(
-        x.data_ptr(), sizes["lengths"].data_ptr(), b, p,
-        *[sizes[k].data_ptr() for k in ("tile_entry", "tile_base",
-                                        "out_base")],
-        out.data_ptr(), total, _build.stream(dev)), "expand")
+    _build.launch("expand", dev, "shafa_expand", x.data_ptr(),
+                  sizes["lengths"].data_ptr(), b, p,
+                  *[sizes[k].data_ptr() for k in ("tile_entry", "tile_base",
+                                                  "out_base")],
+                  out.data_ptr(), total)
     return out

@@ -215,16 +215,14 @@ def profiled_round_trip(path: str, data: bytes, trace_dir: str | None,
                         block: str = "m"):
     """One round trip per direction under torch.profiler; prints the busy
     share and the longest device operations of each."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    kind = device.default_device().type
     for direction in ("compress", "decompress"):
         with contextlib.redirect_stdout(io.StringIO()):
             argv = [path, "-b", block] if direction == "compress" \
                 else [path + ".rle.shaf"]
             if direction == "decompress":
                 os.rename(path, path + ".orig")
-            with torch.profiler.profile(activities=acts) as prof:
+            with cli.profiler(kind) as prof:
                 t0 = time.perf_counter()
                 rc = cli.main(argv)
                 _sync()

@@ -153,11 +153,16 @@ def test_cli_refusals(tmp_path, monkeypatch, capsys):
     assert cli.parse([path, "--backend", "jax"]) is None
     assert cli.main([path, "--backend", "jax"]) == 1
     assert "Wrong Options' syntax" in capsys.readouterr().err
-    assert cli.main([path, "--profile", str(tmp_path / "p")]) == 1
-    assert "--profile is not yet ported" in capsys.readouterr().err
+    # --profile runs (tests/test_torch_dist.py holds its outputs and trace)
+    prof = _write(str(tmp_path / "h.bin"), mixed(5000, seed=2))
+    assert cli.main([prof, "--profile", str(tmp_path / "p")]) == 0
+    assert any(n.endswith(".pt.trace.json")
+               for n in os.listdir(tmp_path / "p"))
+    capsys.readouterr()
+    # a multi-host join that cannot happen (no NUM_PROCESSES) exits 1
     monkeypatch.setenv("COORDINATOR_ADDRESS", "localhost:1")
     assert cli.main([path]) == 1
-    assert "multi-host" in capsys.readouterr().err
+    assert "multi-host join failed" in capsys.readouterr().err
     monkeypatch.delenv("COORDINATOR_ADDRESS")
     assert not os.path.exists(path + ".rle")
     # above the threshold the CLI streams, and its sidecars are the NumPy
