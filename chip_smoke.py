@@ -12,12 +12,16 @@ Phases, each fatal on failure:
      every kernel's registers and spills as ``nvcc -Xptxas -v`` gave them;
   3. every kernel of the paths against its plain PyTorch version on the
      card, on the paths' shapes, exact equality, both timed with CUDA
-     events: K1-K4 and K7 on the 200 MB mixed corpus's batches (K4 from
-     the decode batch's RLE rows, its three launches timed together
-     without the sizes' download, its plain version the token scan of
-     rle_expand_prep and expand_tokens_plain; K7's interleaved packs on the
-     planes K3 takes, then K2 -> K7 -> K1 must give K3's rows; K1's time
-     beside that of its output's memset alone), K5 (below each row's
+     events: K8 (the RLE encode with its histogram; out_len, the bytes
+     below it and the histogram) on the (8, 8 MiB) first batches of the
+     mixed and of the text corpus, K1's bits variant on K8's plain
+     version's payloads of the mixed batch, K1-K4 and K7 on the 200 MB
+     mixed corpus's batches (K4 from the decode batch's RLE rows, its
+     three launches timed together without the sizes' download, its plain
+     version the token scan of rle_expand_prep and expand_tokens_plain;
+     K7's interleaved packs on the planes K3 takes, then K2 -> K7 -> K1
+     must give K3's rows; K1's time beside that of its output's memset
+     alone), K5 (below each row's
      payload, where its planes are specified), K6 (its interleaved (B, 2P)
      vals and lens and its underrun flags) and K4 (untimed) on the (4, 8
      MiB) decode batch of the 200 MB text corpus; beside each, the least
@@ -34,15 +38,21 @@ Phases, each fatal on failure:
      edges of its tiles and look-back (1 lane, a tile boundary and one
      lane past it, spans of 0-bit lanes, 32-bit payloads straddling words;
      P a multiple of 16 and not), K5 on rows that end on and just past a
-     tile, and K4 5 times on its edge rows (k4_edge_rows);
+     tile, K4 5 times on its edge rows (k4_edge_rows), and K8 20 times on
+     its edge rows (k8_edge_rows: runs that end at a tile's last and first
+     three bytes, 0x00 runs of 1-3 and 254-511 bytes across tiles, an
+     8 MiB one-byte row, an alternating 0x00 / x row, lengths 0-3 and a
+     tile +- 1 with the bytes past them equal to the last);
   5. two main paths through ``shafa_tpu_torch.cli.main([path, "-b", "m"])``
      and back from their .rle.shaf, each bit-exact, with the launch counts
      set to 0 before and read after: the 200,000,000-byte mixed corpus
-     (codes of at most 16 bits: K1-K4) and the 200,000,000-byte text corpus
-     with rare bytes (every block with codes of 17-32 bits: K1, K5, K6,
-     K4); no block decoded on the host on either, and neither
-     rle.token_starts nor decode.interleave_packs runs (each is replaced
-     by a function that raises);
+     (codes of at most 16 bits: K8, K1 LUT, K2-K4) and the
+     200,000,000-byte text corpus with rare bytes (every block with codes
+     of 17-32 bits: K8, K1, K5, K6, K4); both in the R mode, no block
+     decoded on the host on either, and no plain stage runs
+     (plain_stages: rle.token_starts, decode.interleave_packs,
+     rle.rle_payloads, rle._rle_analyze, histogram.histogram_batch, each
+     replaced by a function that raises);
   6. scale-out and the CLI's extras on the 200 MB mixed corpus, each
      fatal on failure, with launch counts read around it (on a host with
      n >= 2 cards, each rank sees half of them and D is n, all real):
@@ -52,7 +62,7 @@ Phases, each fatal on failure:
        one-process round trip, then calling ``cli.main([path, "-b",
        "m"])`` and ``cli.main([path + ".rle.shaf"])``: .rle, .rle.freq,
        .rle.cod and .rle.shaf equal to those of 5 by SHA-256, the
-       decompress bit-exact, each rank launching K1 (both variants) in its
+       decompress bit-exact, each rank launching K8 and K1 LUT in its
        compress and K2, K3, K4 in its decompress, both ranks on one card
        (the same device uuid); each direction's wall printed;
      - multi-device: dist.ShardedBackend over [cuda:0, cuda:0] (two worker
@@ -65,7 +75,7 @@ Phases, each fatal on failure:
        compared a fused stage with the NumPy oracle in each direction;
      - ``--profile DIR`` on 20 MB of the mixed corpus at -b m: sidecars
        equal to an unprofiled run's (timed beside it), bit-exact, and the
-       two traces in DIR name K1's, K2's, K3's and K4's kernels;
+       two traces in DIR name K1's, K2's, K3's, K4's and K8's kernels;
   7. the streaming path, with the 200 MB corpora freed first: a 1 GiB file
      of the mixed corpus (16 blocks of 64 MiB) through
      ``cli.main([path, "-b", "M"])``, which must stream in F, C and D and
@@ -75,20 +85,22 @@ Phases, each fatal on failure:
      SHA-256; the decompress of the streamed .rle.shaf and the RLE-only
      decode of its .rle (``-m d``, which streams, the .rle being above
      256 MiB), each bit-exact by SHA-256; launch counts read around each
-     streaming step (K1 both variants, K2, K3, K4), no block decoded on
-     the host, rle.token_starts and decode.interleave_packs refused as in
-     5; the walls, MB/s and device memory peaks printed. Each file is
-     deleted once it has been compared (about 4.5 GB at the peak). Then
-     K1-K4 against their plain versions, exact and timed, on the inputs
-     that this path gave them (one 64 MiB block a batch): K1 bits and K1
-     LUT on the compress's first RLE encode and pack batches, K2 and K3 on
-     the decompress's first decode batch, K4 on the first RLE rows of the
-     decompress and of the RLE-only decode;
+     streaming step (K8, K1 LUT, K2, K3, K4), no block decoded on the
+     host, the plain stages refused as in 5; the walls, MB/s and device
+     memory peaks printed. Each file is deleted once it has been compared
+     (about 4.5 GB at the peak). Then K8 and K1-K4 against their plain
+     versions, exact and timed, on the inputs that this path gave them
+     (one 64 MiB block a batch): K8 on the compress's first RLE encode
+     batch, K1 bits on K8's plain version's payloads of it, K1 LUT on its
+     first pack batch, K2 and K3 on the decompress's first decode batch,
+     K4 on the first RLE rows of the decompress and of the RLE-only
+     decode;
   8. the text corpus at -b M: 5 blocks of 64 MiB (335,544,320 bytes)
      through ``cli.main([path, "-b", "M"])`` and back, F and C streaming
      (and D, with the threshold lowered to 64 MiB for its 196 MB archive),
      bit-exact, every block's longest code 17-32 bits, no block decoded on
-     the host, walls and device peaks printed; then K1 LUT on the
+     the host, no plain stage run, walls and device peaks printed; K8, K1
+     (both variants), K5, K6, K4 launched; then K1 LUT on the
      compress's first pack batch and K5 and K6 on the decompress's first
      decode batch (one 64 MiB block) against their plain versions, exact
      and timed, each on the whole row (K6's plain version composes the
@@ -101,16 +113,16 @@ Phases, each fatal on failure:
      with a budget of 300 s and scaling off; its JSON line printed with the
      card; a byte that differs, a section that ran out of time, or a line
      without roundtrip_bit_exact, decode_mb_s and streaming_e2e_mb_s
-     fails; K1 (both variants), K2, K3, K4 must launch;
+     fails; K8, K1 LUT, K2, K3, K4 must launch;
   11. the bench_stages path: ``shafa_tpu_torch.bench_stages.main`` at its
      defaults (64 MiB in 8 MiB blocks): each encode stage timed, with its
-     bytes bound, and its check against the oracle; K1 (both variants);
+     bytes bound, and its check against the oracle; K8 and K1 LUT;
   12. the bench_scaling path: ``shafa_tpu_torch.bench_scaling.parent`` on
      24 blocks of 8 MiB at D = 1, 2, 4, 8, each count that has as many
      distinct cards (D = 1 alone on a one-card host; worker threads
      sharing one card are phase 6's D=2 round trip); every row's RLE
      streams and payloads equal by SHA-256, the first row's equal to the
-     oracle's; K1 (both variants);
+     oracle's; K8 and K1 LUT;
   13. the sidecars of a 16 MB mixed and a 16 MB random file at -b K against
      the same CLI with ``--backend numpy``; no module of shafa_tpu and no
      jax imported in the whole run.
@@ -183,46 +195,51 @@ SOURCES = {
                "shafa_tpu/kernels/decode.py:485"),
     "fsm32": ("shafa_tpu_torch/kernels/csrc/fsm32.cu",
               "shafa_tpu/kernels/decode.py:631"),
+    "rle_encode": ("shafa_tpu_torch/kernels/csrc/rle_encode.cu",
+                   "shafa_tpu/kernels/rle.py:85"),
 }
 
-#: Kernels each main path must launch.
+#: Kernels each main path must launch. K1's bits variant ("emit_bits")
+#: runs only where codes of 17-32 bits decode (K6 -> K1) and in the
+#: decode-stage benchmark: every compress encodes with K8 ("rle_encode").
 PATH_KERNELS = {
-    "mixed": ("emit_bits", "emit_coded", "rank", "fsm_decode",
+    "mixed": ("rle_encode", "emit_coded", "rank", "fsm_decode",
               "expand_sizes", "expand"),
-    "text": ("emit_bits", "emit_coded", "rank32", "fsm32", "expand_sizes",
-             "expand"),
-    "streaming": ("emit_bits", "emit_coded", "rank", "fsm_decode",
+    "text": ("rle_encode", "emit_bits", "emit_coded", "rank32", "fsm32",
+             "expand_sizes", "expand"),
+    "streaming": ("rle_encode", "emit_coded", "rank", "fsm_decode",
                   "expand_sizes", "expand"),
     "decode_stages": ("fsm_packs", "rank", "fsm_decode", "expand_sizes",
                       "expand", "emit_bits"),
-    "multihost": ("emit_bits", "emit_coded", "rank", "fsm_decode",
+    "multihost": ("rle_encode", "emit_coded", "rank", "fsm_decode",
                   "expand_sizes", "expand"),
-    "multidevice": ("emit_bits", "emit_coded", "rank", "fsm_decode",
+    "multidevice": ("rle_encode", "emit_coded", "rank", "fsm_decode",
                     "expand_sizes", "expand"),
-    "check": ("emit_bits", "emit_coded", "rank", "fsm_decode", "rank32",
-              "fsm32", "expand_sizes", "expand"),
-    "profile": ("emit_bits", "emit_coded", "rank", "fsm_decode",
+    "check": ("rle_encode", "emit_bits", "emit_coded", "rank", "fsm_decode",
+              "rank32", "fsm32", "expand_sizes", "expand"),
+    "profile": ("rle_encode", "emit_coded", "rank", "fsm_decode",
                 "expand_sizes", "expand"),
-    "text_stream": ("emit_bits", "emit_coded", "rank32", "fsm32",
-                    "expand_sizes", "expand"),
+    "text_stream": ("rle_encode", "emit_bits", "emit_coded", "rank32",
+                    "fsm32", "expand_sizes", "expand"),
     # the corpus's codes have 9-10 bits: neither K5 nor K6 runs
-    "bench": ("emit_bits", "emit_coded", "rank", "fsm_decode",
+    "bench": ("rle_encode", "emit_coded", "rank", "fsm_decode",
               "expand_sizes", "expand"),
-    "bench_stages": ("emit_bits", "emit_coded"),
-    "bench_scaling": ("emit_bits", "emit_coded"),
+    "bench_stages": ("rle_encode", "emit_coded"),
+    "bench_scaling": ("rle_encode", "emit_coded"),
 }
 
 #: Kernels each rank of the multi-host run must launch, per direction.
-RANK_KERNELS = {"compress": ("emit_bits", "emit_coded"),
+RANK_KERNELS = {"compress": ("rle_encode", "emit_coded"),
                 "decompress": ("rank", "fsm_decode", "expand_sizes",
                                "expand")}
 
 #: Decode kernels each corpus's --check round trip must launch.
-CHECK_KERNELS = {"mixed": ("rank", "fsm_decode"), "text": ("rank32", "fsm32")}
+CHECK_KERNELS = {"mixed": ("rle_encode", "rank", "fsm_decode"),
+                 "text": ("rle_encode", "rank32", "fsm32")}
 
 #: A name in the --profile trace of each kernel of the mixed path.
 TRACE_KERNELS = {"K1": "emit_tiles", "K2": "rank_lut", "K3": "fsm16_tile",
-                 "K4": "expand_tiles"}
+                 "K4": "expand_tiles", "K8": "rle_enc_tiles"}
 
 
 def fail(msg: str) -> None:
@@ -259,9 +276,13 @@ def compare(name, kernel, plain, moved: int, unpack) -> dict:
     got = [t.to(torch.int64) for t in unpack(out)]
     want = [t.to(torch.int64) for t in unpack(plain())]
     torch.cuda.synchronize()
+    shapes = [(tuple(g.shape), tuple(w.shape)) for g, w in zip(got, want)]
+    if any(a != b for a, b in shapes):
+        fail(f"{name}: the kernel's outputs and its plain version's differ "
+             f"in shape: {[s for s in shapes if s[0] != s[1]][:4]}")
     err = max(int((g - w).abs().max()) if g.numel() else 0
               for g, w in zip(got, want))
-    if any(g.shape != w.shape for g, w in zip(got, want)) or err:
+    if err:
         fail(f"{name}: kernel differs from its plain version "
              f"(max abs err {err})")
     del got, want, out
@@ -275,21 +296,17 @@ def compare(name, kernel, plain, moved: int, unpack) -> dict:
 
 def encode_on_card(data: bytes, dev, rows: int):
     """The first rows blocks of data through the main path's encode on the
-    card: RLE (K1), histograms, code tables, the pack (K1's LUT variant).
-    Returns (x, lengths, K1 inputs, RLE streams, their lengths, tables,
-    payloads, the pack's arguments)."""
+    card: the RLE rows and their histograms (K8), code tables, the pack
+    (K1's LUT variant). Returns (x, lengths, RLE streams, their lengths,
+    tables, payloads, the pack's arguments)."""
     import torch
     from shafa_tpu_torch import codes as codes_mod
-    from shafa_tpu_torch.device import _stack_blocks, tables_to_device
-    from shafa_tpu_torch.kernels import emit, histogram, pack, rle
+    from shafa_tpu_torch.device import tables_to_device
+    from shafa_tpu_torch.kernels import emit, pack, rle
 
-    blocks = [np.frombuffer(data, np.uint8, BLOCK, i * BLOCK)
-              for i in range(rows)]
-    stacked, lens = _stack_blocks(blocks)
-    x = torch.from_numpy(stacked).to(dev)
-    ld = torch.from_numpy(lens).to(dev)
-    enc, enc_len = rle.rle_encode_batch(x, ld)
-    hist = histogram.histogram_batch(enc, enc_len).cpu().numpy()
+    x, ld = batch_on_card(data, dev, rows)
+    enc, enc_len, hist = rle.rle_encode_hist(x, ld)
+    hist = hist.cpu().numpy()
     tables = codes_mod.build_code_tables(hist)
     dt = tables_to_device(tables, dev)
     byte_lens = pack.pack_byte_lens(hist, np.clip(tables.lens, 0, 32))
@@ -303,9 +320,37 @@ def encode_on_card(data: bytes, dev, rows: int):
     return x, ld, enc, enc_len, tables, payloads, pack_args
 
 
+def batch_on_card(data: bytes, dev, rows: int):
+    """The first rows BLOCK-byte blocks of data as the main path stacks
+    them, on the card: (x, lengths)."""
+    from shafa_tpu_torch.device import _stack_blocks
+    stacked, lens = _stack_blocks([np.frombuffer(data, np.uint8, BLOCK,
+                                                 i * BLOCK)
+                                   for i in range(rows)])
+    return torch_from(stacked, dev), torch_from(lens, dev)
+
+
+def compare_k8(name: str, x, lengths) -> dict:
+    """K8 against its plain version on the same (B, P) batch: out_len, each
+    row's bytes below it and hist, exact; both timed. The bound counts the
+    rows' valid bytes read once, the RLE bytes written once, the lengths
+    and the histograms."""
+    from shafa_tpu_torch.kernels import rle
+    _, out_len, hist = rle.rle_encode_hist(x, lengths)
+
+    def unpack(out):
+        enc, n, h = out
+        return [n, h] + [enc[i, :int(k)] for i, k in enumerate(n.tolist())]
+    return compare(name, lambda: rle.rle_encode_hist(x, lengths),
+                   lambda: rle.rle_encode_hist_plain(x, lengths),
+                   int(lengths.sum()) + nbytes(lengths)
+                   + int(out_len.sum()) + nbytes(out_len, hist), unpack)
+
+
 def kernel_phase(data: bytes, dev) -> list[dict]:
-    """K1-K4 and K7 against their plain versions on the main path's shapes:
-    one (8, 8 MiB) batch of the corpus for K1, and the (4, 8 MiB) decode
+    """K8, K1-K4 and K7 against their plain versions on the main path's
+    shapes: one (8, 8 MiB) batch of the corpus for K8 and K1 (its bits
+    variant on K8's plain version's payloads), and the (4, 8 MiB) decode
     batch that the main path builds from its payloads for K2-K4 and K7."""
     import torch
     from shafa_tpu_torch import codes as codes_mod
@@ -315,7 +360,8 @@ def kernel_phase(data: bytes, dev) -> list[dict]:
 
     x, ld, enc, enc_len, tables, payloads, pack_args = encode_on_card(
         data, dev, 8)
-    results = []
+    results = [dict(name="rle_encode", shape=list(x.shape),
+                    **compare_k8("K8 rle_encode", x, ld))]
     val, bitlen, _ = rle.rle_payloads(x, ld)
     stride = rle.rle_out_bound(BLOCK) // 4
     r = compare("K1 emit_bits",
@@ -488,6 +534,71 @@ def k4_edge_rows(tile: int, seed: int) -> list[np.ndarray]:
     return rows
 
 
+#: 0x00 runs that k8_edge_rows lays across tile boundaries
+K8_ZERO_RUNS = (1, 2, 3, 254, 255, 256, 510, 511)
+
+
+def k8_edge_rows(tile: int, width: int, seed: int):
+    """K8's edge rows for tiles of `tile` input bytes, (B, width) uint8 and
+    (B,) int32 lengths, every byte past a row's length equal to its last
+    valid byte: runs of 1-5 bytes and one of tile // 2 that end at tiles'
+    last three bytes and first three; 0x00 runs of K8_ZERO_RUNS bytes, each
+    across a tile boundary; a one-byte row of the full width; a one-byte
+    row cut 2 bytes past a 255 split (a short literal remainder) and a 0x00
+    row cut 3 bytes past one (an escaped remainder); an alternating
+    0x00 / x row (output 2 * width); rows of lengths 0-3 and tile - 1, tile
+    and tile + 1; a row of short runs over 4 bytes (0x00 among them)."""
+    rng = np.random.default_rng(seed)
+
+    def distinct(n):
+        """n nonzero bytes, none equal to the one before it."""
+        out = rng.integers(1, 255, n).astype(np.uint8)
+        same = np.flatnonzero(out[1:] == out[:-1]) + 1
+        out[same] = np.where(out[same - 1] == 255, 1, out[same - 1] + 1)
+        return out
+
+    def other(*near):
+        return next(int(v) for v in rng.permutation(np.arange(1, 256))
+                    if v not in near)
+
+    rows, lens = [], []
+
+    def add(row, n):
+        row = np.array(row[:width], np.uint8)
+        row = np.concatenate([row, np.zeros(width - row.size, np.uint8)])
+        row[n:] = row[n - 1] if n else 5
+        rows.append(row)
+        lens.append(n)
+
+    row = distinct(width)
+    ends = [k * tile + d for k, d in enumerate((-3, -2, -1, 0, 1, 2), 1)]
+    for end, r in zip(ends, (3, 4, 2, 5, tile // 2, 1)):
+        row[end - r + 1:end + 1] = other(row[end - r], row[end + 1])
+    add(row, ends[-1] + 1)
+    row, pos = distinct(width), tile
+    for r in K8_ZERO_RUNS:
+        start = pos - r // 2
+        row[start:start + r] = 0
+        pos = (-(-(start + r + 2) // tile) + 1) * tile
+    if pos > width:
+        raise ValueError(f"k8_edge_rows: {width} bytes hold no zero runs "
+                         f"at tiles of {tile}")
+    add(row, pos)
+    add(np.full(width, 0x41), width)
+    m = (width // 2) // 255
+    add(np.full(width, 7), 255 * m + 2)
+    add(np.zeros(width), 255 * m + 3)
+    alt = distinct(width)
+    alt[0::2] = 0
+    add(alt, width)
+    for n in (0, 1, 2, 3, tile - 1, tile, tile + 1):
+        add(rng.choice(np.array([0, 1, 2, 200], np.uint8), width), n)
+    runs = np.repeat(rng.choice(np.array([0, 1, 2, 200], np.uint8), width),
+                     rng.integers(1, 7, width))
+    add(runs, width - 7)
+    return np.stack(rows), np.array(lens, np.int32)
+
+
 def k5_tables(tables, dev) -> list:
     """K5's tables of a CodeTables batch on the card: pc32, ls, ncodes and
     the 12-bit table."""
@@ -517,13 +628,20 @@ def below_payload(plens):
 
 
 def kernel32_phase(text: bytes, dev) -> list[dict]:
-    """K5 and K6 against their plain versions on the 17-32-bit path's
-    decode batch: the payloads of the text corpus's first 4 blocks, as the
-    main path packs them, in one (4, 8 MiB) batch."""
+    """K8 against its plain version on the text corpus's first (8, 8 MiB)
+    batch (printed here), then K5 and K6 against theirs on the 17-32-bit
+    path's decode batch: the payloads of the text corpus's first 4 blocks,
+    as the main path packs them, in one (4, 8 MiB) batch."""
     import torch
     from shafa_tpu_torch.device import _bucket, _stack_blocks
     from shafa_tpu_torch.kernels import decode, expand
 
+    x, ld = batch_on_card(text, dev, 8)
+    r = compare_k8("K8 rle_encode on the text corpus", x, ld)
+    print(f"rle_encode on the text corpus: shape {list(x.shape)} kernel "
+          f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+          f"{r['bound_ms']:.3f} ms, exact", flush=True)
+    del x, ld
     drows = 4
     _, _, enc, enc_len, tables, payloads, _ = encode_on_card(text, dev,
                                                              drows)
@@ -699,6 +817,32 @@ def k4_edge_phase(dev) -> None:
           f"{total} bytes expanded): exact vs plain in 5 runs", flush=True)
 
 
+def k8_edge_phase(dev) -> None:
+    """K8 20 times against its plain version on its edge rows
+    (k8_edge_rows at its own tile, 8 MiB wide)."""
+    import torch
+    from shafa_tpu_torch.kernels import _build, rle
+
+    st, lens = k8_edge_rows(_build.library().shafa_rle_encode_tile_bytes(),
+                            BLOCK, SEED + 10)
+    x, ln = torch_from(st, dev), torch_from(lens, dev)
+    want = rle.rle_encode_hist_plain(x, ln)
+    sizes = want[1].tolist()
+    rows = [want[0][i, :n] for i, n in enumerate(sizes)]
+    if sizes[5] != 2 * BLOCK:
+        fail(f"K8 edge rows: the alternating row gives {sizes[5]} bytes")
+    for _ in range(20):
+        enc, out_len, hist = rle.rle_encode_hist(x, ln)
+        if not (torch.equal(out_len, want[1]) and torch.equal(hist, want[2])
+                and all(torch.equal(enc[i, :r.numel()], r)
+                        for i, r in enumerate(rows))):
+            fail("K8 differs from its plain version on its edge rows")
+    del want, rows, enc, x
+    torch.cuda.empty_cache()
+    print(f"K8 edge rows ({len(lens)} rows of {lens.tolist()} bytes): "
+          "exact vs plain in 20 runs", flush=True)
+
+
 def emit_edge_case(variant: str, aligned: bool, tile: int, dev):
     """K1's edge rows, six rows of P lanes (P a multiple of 16, or not, so
     that lanes are read one at a time): a 1-lane row, rows that end on a
@@ -787,6 +931,17 @@ def run_cli(argv: list[str], log) -> None:
         fail(f"shafa_tpu_torch {' '.join(argv)} exited {rc}")
 
 
+def plain_stages() -> tuple:
+    """(module, name) of the plain-torch stages that no CLI path on the card
+    runs in the R mode: K4's plain token scan, K7's plain interleave, K8's
+    plain run analysis and histogram_batch (which only raw rows take, in
+    the N mode and with -c f)."""
+    from shafa_tpu_torch.kernels import decode, histogram, rle
+    return ((rle, "token_starts"), (decode, "interleave_packs"),
+            (rle, "rle_payloads"), (rle, "_rle_analyze"),
+            (histogram, "histogram_batch"))
+
+
 @contextlib.contextmanager
 def refused(*targets):
     """Each (module, name) replaced by a function that raises while the
@@ -812,7 +967,7 @@ def main_path(work: str, name: str, data: bytes) -> dict:
     import torch
     from shafa_tpu_torch import formats
     from shafa_tpu_torch.device import TorchBackend
-    from shafa_tpu_torch.kernels import _build, decode, rle
+    from shafa_tpu_torch.kernels import _build
 
     path = os.path.join(work, f"{name}.bin")
     with open(path, "wb") as fp:
@@ -821,7 +976,7 @@ def main_path(work: str, name: str, data: bytes) -> dict:
     _build.reset_launches()
     TorchBackend.host_decoded_blocks = 0
     torch.cuda.synchronize()
-    with refused((rle, "token_starts"), (decode, "interleave_packs")):
+    with refused(*plain_stages()):
         t0 = time.perf_counter()
         run_cli([path, "-b", "m"], log)
         t1 = time.perf_counter()
@@ -952,11 +1107,11 @@ def streaming_path(work: str) -> dict:
               f"{dict(_build.launches)}", flush=True)
 
     TorchBackend.host_decoded_blocks = 0
-    with refused((rle, "token_starts"), (decode, "interleave_packs")), \
+    with refused(*plain_stages()), \
             recorded(pipeline, "compress_pipeline_streaming",
                      "_module_d_shafa_streaming",
                      "_module_d_rle_streaming") as calls, \
-            captured((rle, "rle_encode_batch"), (pack, "pack_batch"),
+            captured((rle, "rle_encode_hist"), (pack, "pack_batch"),
                      (decode, "decode_batch"),
                      (expand, "rle_expand_sizes")) as (args, arm):
         step("compress", [path, "-b", "M"])
@@ -1016,12 +1171,13 @@ def streaming_path(work: str) -> dict:
 
 
 def stream_kernel_phase(args: dict, dev) -> list[dict]:
-    """K1-K4 against their plain versions on the inputs that the streaming
-    path gave them (streaming_path's first call of each entry, one 64 MiB
-    block a batch): K1 bits on the compress's first RLE encode batch, K1
-    LUT on its first pack batch, K2 and K3 on the decompress's first decode
-    batch, K4 on the first RLE rows of the decompress and of the RLE-only
-    decode. Exact equality, both timed."""
+    """K8 and K1-K4 against their plain versions on the inputs that the
+    streaming path gave them (streaming_path's first call of each entry,
+    one 64 MiB block a batch): K8 on the compress's first RLE encode batch,
+    K1 bits on K8's plain version's payloads of it, K1 LUT on its first
+    pack batch, K2 and K3 on the decompress's first decode batch, K4 on
+    the first RLE rows of the decompress and of the RLE-only decode. Exact
+    equality, both timed."""
     import torch
     from shafa_tpu_torch.kernels import decode, emit, expand, rle
 
@@ -1031,8 +1187,10 @@ def stream_kernel_phase(args: dict, dev) -> list[dict]:
         return [a.to(dev) if isinstance(a, torch.Tensor) else a
                 for a in args[key]]
 
-    results = []
-    x, ld = on_card(("compress", "rle_encode_batch"))
+    x, ld = on_card(("compress", "rle_encode_hist"))
+    results = [dict(name="rle_encode", shape=list(x.shape),
+                    **compare_k8("K8 rle_encode at the streaming shapes", x,
+                                 ld))]
     val, bitlen, out_len = rle.rle_payloads(x, ld)
     ld = ld.to(torch.int32)
     stride = rle.rle_out_bound(x.shape[1]) // 4
@@ -1254,7 +1412,7 @@ def multidevice_path(work: str, data: bytes, want: dict, devs) -> dict:
     import torch
     from shafa_tpu_torch import dist, dryrun
     from shafa_tpu_torch.device import TorchBackend
-    from shafa_tpu_torch.kernels import _build, decode, rle
+    from shafa_tpu_torch.kernels import _build
 
     block_devices = dist.block_devices
     n_devices = len(devs or block_devices())
@@ -1276,7 +1434,7 @@ def multidevice_path(work: str, data: bytes, want: dict, devs) -> dict:
     with patched(dist, "block_devices",
                  lambda devices=None: devs or block_devices(devices)), \
             patched(dist, "make_backend", make_recorded), \
-            refused((rle, "token_starts"), (decode, "interleave_packs")):
+            refused(*plain_stages()):
         t0 = time.perf_counter()
         run_cli([path, "-b", "m"], io.StringIO())
         t1 = time.perf_counter()
@@ -1411,8 +1569,8 @@ def check_path(work: str, corpora: dict) -> dict:
 def profile_path(work: str, data: bytes) -> dict:
     """``cli.main([path, "-b", "m", "--profile", DIR])`` and back on
     PROFILE_BYTES of the mixed corpus: sidecars equal to an unprofiled
-    run's, bit-exact, and the traces in DIR name K1-K4's kernels. The
-    unprofiled round trip of the same bytes is timed beside it."""
+    run's, bit-exact, and the traces in DIR name K1-K4's and K8's kernels.
+    The unprofiled round trip of the same bytes is timed beside it."""
     import torch
     from shafa_tpu_torch.kernels import _build
 
@@ -1491,7 +1649,7 @@ def text_stream_path(work: str) -> dict:
     import torch
     from shafa_tpu_torch import formats, pipeline
     from shafa_tpu_torch.device import TorchBackend
-    from shafa_tpu_torch.kernels import _build, decode, pack, rle
+    from shafa_tpu_torch.kernels import _build, decode, pack
     from shafa_tpu_torch.profile_main_path import text_with_rare_bytes
 
     path = os.path.join(work, "text_stream.bin")
@@ -1504,7 +1662,7 @@ def text_stream_path(work: str) -> dict:
     del data
     launches, walls, peaks = {}, {}, {}
     TorchBackend.host_decoded_blocks = 0
-    with refused((rle, "token_starts"), (decode, "interleave_packs")), \
+    with refused(*plain_stages()), \
             recorded(pipeline, "compress_pipeline_streaming",
                      "_module_d_shafa_streaming") as calls, \
             captured((pack, "pack_batch"),
@@ -1801,7 +1959,8 @@ def main(argv: list[str] | None = None) -> int:
                           ("K3 and K7 (passes A and B shared; last pass "
                            "<0> K3's, <1> K7's)", "fsm16_"),
                           ("K4", "expand_"), ("K5", "rank32_"),
-                          ("K6", "fsm32_")):
+                          ("K6", "fsm32_"),
+                          ("K8 (passes C1 <0> and C2 <1>)", "rle_enc_")):
         res = _build.resources(prefix)
         if not res:
             fail(f"no ptxas report of {label}'s kernels")
@@ -1832,6 +1991,7 @@ def main(argv: list[str] | None = None) -> int:
     edge_phase(dev)
     k1_k5_edge_phase(dev)
     k4_edge_phase(dev)
+    k8_edge_phase(dev)
     torch.cuda.empty_cache()
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1849,8 +2009,10 @@ def main(argv: list[str] | None = None) -> int:
                   f"{res['blocks']} blocks with longest codes of "
                   f"{res['maxlen'][0]}-{res['maxlen'][1]} bits, round trip "
                   f"bit-exact, launches {res['launches']}, host-decoded "
-                  "blocks 0, rle.token_starts and decode.interleave_packs "
-                  "never ran", flush=True)
+                  "blocks 0, R mode; rle.token_starts, "
+                  "decode.interleave_packs, rle.rle_payloads, "
+                  "rle._rle_analyze and histogram.histogram_batch never ran",
+                  flush=True)
         if not 16 < runs["text"]["maxlen"][0] <= runs["text"]["maxlen"][1] \
                 <= 32:
             fail(f"text: longest codes {runs['text']['maxlen']}, not all "
@@ -1866,7 +2028,7 @@ def main(argv: list[str] | None = None) -> int:
               f"{pw['decompress']:.3f} s); "
               f"sidecars equal to an unprofiled run's, bit-exact; "
               f"{res['traces']} traces ({res['trace_bytes']} bytes) naming "
-              f"{res['kernel_names']} kernels, K1-K4's among them "
+              f"{res['kernel_names']} kernels, K1-K4's and K8's among them "
               f"({', '.join(TRACE_KERNELS.values())}); launches "
               f"{res['launches']}", flush=True)
         del corpora, data
@@ -1886,7 +2048,8 @@ def main(argv: list[str] | None = None) -> int:
               f"{pk['rle_decode']} B, resident compress {pk['resident']} B; "
               "F, C and D streamed, sidecars equal to the resident "
               "compress's, both decodes bit-exact, launches "
-              f"{res['launches']}, host-decoded blocks 0", flush=True)
+              f"{res['launches']}, host-decoded blocks 0, no plain stage "
+              "ran", flush=True)
         for k in stream_kernel_phase(res.pop("args"), dev):
             step = f", {k['step']}" if "step" in k else ""
             print(f"{k['name']} at the streaming shapes{step}: shape "

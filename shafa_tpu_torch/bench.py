@@ -11,16 +11,15 @@ so that a run cut short keeps what it measured.
 
 Headline, **device-path encode throughput**: input blocks resident on the
 card, through the fused tier of device.TorchBackend, which the CLI runs:
-RLE (the plain-torch run analysis, then K1's bits variant) -> histogram of
-the RLE rows -> the host's Shannon-Fano code build -> K1's LUT variant,
-which packs every row into one buffer at 512 B-aligned offsets; the
-histograms and RLE sizes coming to the host and the code tables going to
-the card are included, the blocks' upload and the packed buffers'
-download are not (TorchBackend.upload_blocks, encode_on_device,
-fused_pack_batches and pack_on_device are fused_encode and fused_pack
-without them). The value is the mean of SHAFA_BENCH_REPS calls after a
-warm-up call, against the C reference's 83.1 MB/s (BASELINE.md: 100 MB in
-1.204 s on 2 vCPUs).
+the RLE rows and their histograms (K8) -> the host's Shannon-Fano code
+build -> K1's LUT variant, which packs every row into one buffer at 512
+B-aligned offsets; the histograms and RLE sizes coming to the host and the
+code tables going to the card are included, the blocks' upload and the
+packed buffers' download are not (TorchBackend.upload_blocks,
+encode_on_device, fused_pack_batches and pack_on_device are fused_encode
+and fused_pack without them). The value is the mean of SHAFA_BENCH_REPS
+calls after a warm-up call, against the C reference's 83.1 MB/s
+(BASELINE.md: 100 MB in 1.204 s on 2 vCPUs).
 
 Sections, in order; each is skipped once the wall-clock budget is spent,
 and each after the first is time-boxed (SIGALRM, so main runs in the main

@@ -13,10 +13,14 @@ the timed calls after a first one, CUDA events on the card, the host clock
 on the CPU (SHAFA_TORCH_DEVICE=cpu runs the plain versions). The stages, in
 the original's order:
 
-  rle_encode: krle.rle_encode_batch, with its two parts beneath it,
-      rle_payloads (the run analysis, plain torch) and emit_bits_rows (K1's
-      bits variant);
-  histogram(rle): the 256-bin histograms of the RLE rows (plain torch);
+  rle_encode: krle.rle_encode_hist, K8: the RLE rows, their lengths and
+      their histograms, which the fused encode takes;
+  rle_payloads (old route), emit_bits_rows (old route), beneath it: the
+      route that K8 replaced, no longer on any path: the run analysis in
+      plain torch (K8's plain version's first part) and K1's bits variant
+      on its payloads;
+  histogram(raw): the 256-bin histograms of the raw rows (plain torch),
+      which the N mode and -c f take;
   codes (host, C++): codes.build_code_tables on the host clock;
   pack_words(production): K1's LUT variant through kpack.pack_batch, every
       row at its 512 B-aligned word offset of one buffer;
@@ -103,31 +107,30 @@ def main(argv: list[str] | None = None) -> int:
     ld = torch.from_numpy(lens).to(dev)
 
     # --- encode chain ------------------------------------------------------
-    enc, enc_len = krle.rle_encode_batch(x, ld)
+    enc, enc_len, hist = krle.rle_encode_hist(x, ld)
     enc_sizes = enc_len.cpu().numpy()
     enc_bytes = int(enc_sizes.sum())
-    dt = timeit("rle_encode", lambda: krle.rle_encode_batch(x, ld), size,
+    dt = timeit("rle_encode", lambda: krle.rle_encode_hist(x, ld), size,
                 reps, dev)
-    roofline("rle_encode", dt, size + nbytes(ld) + enc_bytes, dev)
-    # the two parts: the analysis writes each lane's (val, bitlen) pair,
-    # which K1 reads
-    dt = timeit("  rle_payloads", lambda: krle.rle_payloads(x, ld), size,
-                reps, dev)
+    roofline("rle_encode", dt,
+             size + nbytes(ld) + enc_bytes + nbytes(enc_len, hist), dev)
+    # the route before K8: the analysis writes each lane's (val, bitlen)
+    # pair, which K1 reads
+    dt = timeit("  rle_payloads (old route)",
+                lambda: krle.rle_payloads(x, ld), size, reps, dev)
     roofline("rle_payloads", dt, size + nbytes(ld) + 8 * size, dev)
     val, bitlen, _ = krle.rle_payloads(x, ld)
     stride = krle.rle_out_bound(p) // 4
-    dt = timeit("  emit_bits_rows",
+    dt = timeit("  emit_bits_rows (old route)",
                 lambda: kemit.emit_bits_rows(val, bitlen, ld, stride),
                 enc_bytes, reps, dev)
     roofline("emit_bits_rows", dt, 8 * size + nbytes(ld) + enc_bytes, dev)
     del val, bitlen
     print(f"  rle out: {enc_bytes / 1e6:.1f} MB", flush=True)
 
-    dt = timeit("histogram(rle)",
-                lambda: khist.histogram_batch(enc, enc_len), enc_bytes, reps,
-                dev)
-    hist = khist.histogram_batch(enc, enc_len)
-    roofline("histogram", dt, enc_bytes + nbytes(enc_len, hist), dev)
+    dt = timeit("histogram(raw)", lambda: khist.histogram_batch(x, ld),
+                size, reps, dev)
+    roofline("histogram", dt, size + nbytes(ld) + 8 * 256 * b, dev)
     hist = hist.cpu().numpy()
 
     t0 = time.perf_counter()

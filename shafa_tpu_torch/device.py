@@ -247,8 +247,10 @@ class TorchBackend:
             out.extend(h.cpu().numpy())
         return out
 
-    def pack(self, blocks, tables):
-        """blocks + codes.CodeTables (row i = block i's table) -> payloads."""
+    def pack(self, blocks, tables, hists=None):
+        """blocks + codes.CodeTables (row i = block i's table) -> payloads;
+        the payloads' sizes come from hists (row i = block i's histogram)
+        where given, else from the blocks' histograms on the card."""
         results: list[bytes | None] = [None] * len(blocks)
         fast = []
         for i, blk in enumerate(blocks):
@@ -263,7 +265,8 @@ class TorchBackend:
             idx = fast[lo:lo + bsz]
             x = self._upload(stacked[lo:lo + len(idx)])
             ld = self._upload(lens[lo:lo + len(idx)])
-            hist = khist.histogram_batch(x, ld).cpu().numpy()
+            hist = (khist.histogram_batch(x, ld).cpu().numpy()
+                    if hists is None else np.asarray(hists)[idx])
             sub = codes_mod.CodeTables(tables.lens[idx], tables.vals[idx])
             for i, payload in zip(idx, self._pack_rows(x, ld, hist, sub)):
                 results[i] = payload
@@ -337,7 +340,7 @@ class TorchBackend:
         return not self.sequential
 
     def fused_encode(self, blocks) -> _EncodeHandle:
-        """Upload blocks once; RLE (K1) + histogram of the RLE streams stay
+        """Upload blocks once; the RLE streams and their histograms (K8) stay
         on the card."""
         return self.encode_on_device(self.upload_blocks(blocks))
 
@@ -359,13 +362,12 @@ class TorchBackend:
 
     @staticmethod
     def encode_on_device(uploaded: _EncodeHandle) -> _EncodeHandle:
-        """RLE (K1) + histogram of the RLE streams of upload_blocks'
-        batches, in a new handle (uploaded can be encoded again)."""
+        """The RLE streams of upload_blocks' batches and their histograms
+        (K8), in a new handle (uploaded can be encoded again)."""
         h = _EncodeHandle()
         for b in uploaded.batches:
-            enc, enc_len = krle.rle_encode_batch(b["x"], b["lens_dev"])
-            h.batches.append(dict(b, enc=enc, enc_len=enc_len,
-                                  hist=khist.histogram_batch(enc, enc_len)))
+            enc, enc_len, hist = krle.rle_encode_hist(b["x"], b["lens_dev"])
+            h.batches.append(dict(b, enc=enc, enc_len=enc_len, hist=hist))
         return h
 
     @staticmethod

@@ -125,9 +125,10 @@ class ShardedBackend:
         return self._joined(self._split(
             len(blocks), lambda be, lo, hi: be.histogram(blocks[lo:hi])))
 
-    def pack(self, blocks, tables):
+    def pack(self, blocks, tables, hists=None):
         return self._joined(self._split(len(blocks), lambda be, lo, hi: (
-            be.pack(blocks[lo:hi], _sub_tables(tables, lo, hi)))))
+            be.pack(blocks[lo:hi], _sub_tables(tables, lo, hi),
+                    None if hists is None else hists[lo:hi]))))
 
     def unpack(self, payloads, tables, out_counts):
         return self._joined(self._split(len(payloads), lambda be, lo, hi: (

@@ -22,7 +22,6 @@ import torch
 from . import dist, pipeline
 from .device import default_device
 from .kernels import emit as kemit
-from .kernels import histogram as khist
 from .kernels import pack as kpack
 from .kernels import rle as krle
 
@@ -40,15 +39,14 @@ def _example(batch=8, p=2048, seed=0):
 
 
 def forward(x, lengths, lut_len, lut_val):
-    """The fused encode step: RLE (K1 bits), the RLE streams' histograms,
+    """The fused encode step: the RLE streams and their histograms (K8),
     K1 LUT pack of the streams with the (B, 256) code tables (lut_len code
     lengths, lut_val the u32 bits of the left-aligned codes, both int32).
 
     Returns (packed (B, W) uint8 rows, zero past each row's packed length;
     the (B,) int64 packed byte lengths; (B, 256) int64 histograms; (B,)
     int64 RLE lengths)."""
-    enc, enc_len = krle.rle_encode_batch(x, lengths)
-    hist = khist.histogram_batch(enc, enc_len)
+    enc, enc_len, hist = krle.rle_encode_hist(x, lengths)
     byte_lens = kpack.pack_byte_lens(hist.cpu().numpy(),
                                      lut_len.cpu().numpy())
     woff, need = kemit.aligned_offsets(byte_lens)

@@ -1,18 +1,24 @@
-"""RLE encode analysis and the RLE token fields (module F's
-block_compression, f.c:29-55; module D's rle_block_decompressor, d.c:116-197).
+"""The RLE encode (K8, csrc/rle_encode.cu) and the RLE token fields (module
+F's block_compression, f.c:29-55; module D's rle_block_decompressor,
+d.c:116-197).
 
-Port of shafa_tpu/kernels/rle.py. The encoder's per-lane run analysis is
-plain torch (XLA in the JAX package); its emission is K1 (emit.py). The
-decoder's token starts are the orbit of byte 0 under i -> i + (3 if x[i] ==
-0 else 1); they are found here by a plain torch composition scan of the
-3-state machine that rle.py:156-191 runs through lax.associative_scan.
+Port of shafa_tpu/kernels/rle.py. On the card the encode is K8, one kernel
+for the run analysis, the byte emission and the histogram of the RLE rows.
+Its plain version, the CPU's route, is the JAX package's composition in
+plain torch: the per-lane run analysis (_rle_analyze, rle_payloads), K1's
+plain emission and the histogram. The decoder's token starts are the orbit
+of byte 0 under i -> i + (3 if x[i] == 0 else 1); they are found here by a
+plain torch composition scan of the 3-state machine that rle.py:156-191
+runs through lax.associative_scan.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .emit import emit_bits_rows
+from . import _build
+from . import histogram as khist
+from .emit import emit_bits_rows_plain
 
 MAX_RUN = 255
 MIN_ESCAPE_RUN = 4
@@ -75,12 +81,50 @@ def rle_payloads(x: torch.Tensor, lengths: torch.Tensor):
     return val.to(torch.int32), bitlen, out_len
 
 
-def rle_encode_batch(x: torch.Tensor, lengths: torch.Tensor):
-    """(B, P) uint8 + (B,) lengths -> ((B, rle_out_bound(P)) uint8 RLE rows,
-    (B,) int64 RLE lengths); bytes past a row's length are unspecified."""
+def rle_encode_hist_plain(x: torch.Tensor, lengths: torch.Tensor):
+    """K8's plain version: rle_payloads, K1's plain emission, then the
+    histogram of the RLE rows."""
     val, bitlen, out_len = rle_payloads(x, lengths)
-    enc = emit_bits_rows(val, bitlen, lengths.to(x.device, torch.int32),
-                         rle_out_bound(x.shape[1]) // 4)
+    enc = emit_bits_rows_plain(val, bitlen, lengths.to(x.device, torch.int32),
+                               rle_out_bound(x.shape[1]) // 4)
+    return enc, out_len, khist.histogram_batch(enc, out_len)
+
+
+def rle_encode_hist(x: torch.Tensor, lengths: torch.Tensor):
+    """(B, P) uint8 + (B,) lengths -> (enc (B, rle_out_bound(P)) uint8 RLE
+    rows, out_len (B,) int64 RLE lengths, hist (B, 256) int64 counts of each
+    row's enc[:out_len]); bytes past a row's length are unspecified.
+
+    On the card this is K8, and P must be a multiple of 16 (the batches'
+    widths are powers of two >= 256); on the CPU it is the plain version.
+    """
+    if x.device.type == "cpu":
+        return rle_encode_hist_plain(x, lengths)
+    b, p = x.shape
+    if p % 16:
+        raise ValueError(f"rle_encode_hist: row width {p} is not a multiple "
+                         "of 16")
+    dev = x.device
+    lengths = lengths.to(dev, torch.int32).contiguous()
+    args = [_build.ptr(x, torch.uint8, (b, p), dev),
+            _build.ptr(lengths, torch.int32, (b,), dev)]
+    lib = _build.library()
+    n_tiles = -(-p // lib.shafa_rle_encode_tile_bytes())
+    stride = rle_out_bound(p)
+    tile_i32 = torch.empty((2, b, n_tiles), dtype=torch.int32, device=dev)
+    tile_i64 = torch.empty((2, b, n_tiles), dtype=torch.int64, device=dev)
+    enc = torch.empty((b, stride), dtype=torch.uint8, device=dev)
+    out_len = torch.empty(b, dtype=torch.int64, device=dev)
+    hist = torch.empty((b, 256), dtype=torch.int64, device=dev)
+    _build.launch("rle_encode", dev, "shafa_rle_encode", *args, b, p,
+                  tile_i32.data_ptr(), tile_i64.data_ptr(), enc.data_ptr(),
+                  stride, out_len.data_ptr(), hist.data_ptr())
+    return enc, out_len, hist
+
+
+def rle_encode_batch(x: torch.Tensor, lengths: torch.Tensor):
+    """rle_encode_hist's (enc, out_len)."""
+    enc, out_len, _ = rle_encode_hist(x, lengths)
     return enc, out_len
 
 

@@ -292,7 +292,8 @@ def compress_multihost(path: str, block_size: int, backend,
     with open(data_path, "rb") as fp:
         for lo, hi in batches:
             blocks = _read_blocks_at(fp, stream_np, lo, hi)
-            payloads = backend.pack(blocks, _sub_tables(tables, lo, hi))
+            payloads = backend.pack(blocks, _sub_tables(tables, lo, hi),
+                                    freqs[lo:hi])
             for j, pay in enumerate(payloads):
                 my_psizes[lo - rng.lo + j] = len(pay)
                 shaf_spool.write(shaf_frame(pay))

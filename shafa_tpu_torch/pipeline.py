@@ -53,7 +53,11 @@ class Backend(Protocol):
     def histogram(self, blocks: Sequence[np.ndarray]) -> list[np.ndarray]: ...
 
     def pack(self, blocks: Sequence[np.ndarray],
-             tables: "codes_mod.CodeTables") -> list[bytes]: ...
+             tables: "codes_mod.CodeTables",
+             hists: np.ndarray | None = None) -> list[bytes]:
+        """hists: the blocks' (n, 256) histograms where the caller has
+        them (the streaming drivers' .freq rows), so that a backend need
+        not count the blocks again for the payloads' sizes."""
 
     def unpack(self, payloads: Sequence[bytes],
                tables: "codes_mod.CodeTables",
@@ -141,8 +145,8 @@ class CheckedBackend:
         return self._cmp("histogram", self.inner.histogram(blocks),
                          self.oracle.histogram(blocks))
 
-    def pack(self, blocks, tables):
-        return self._cmp("pack", self.inner.pack(blocks, tables),
+    def pack(self, blocks, tables, hists=None):
+        return self._cmp("pack", self.inner.pack(blocks, tables, hists),
                          self.oracle.pack(blocks, tables))
 
     def unpack(self, payloads, tables, out_counts):
@@ -226,7 +230,7 @@ class NumpyBackend:
     def histogram(self, blocks):
         return [oracle.histogram(b) for b in blocks]
 
-    def pack(self, blocks, tables):
+    def pack(self, blocks, tables, hists=None):
         out = []
         for i, b in enumerate(blocks):
             if i in tables.overflow:
@@ -651,7 +655,8 @@ def compress_pipeline_streaming(path: str, force_rle: bool, force_freq: bool,
                     if bi + 1 < len(batches):
                         ov.prefetch(read_streams, fp, *batches[bi + 1])
                     payloads = backend.pack(blocks, _sub_tables(tables, lo,
-                                                                hi))
+                                                                hi),
+                                            freqs[lo:hi])
                     payload_sizes.extend(len(p) for p in payloads)
                     ov.write(write_payloads, out_fp, payloads)
                     if progc.enabled:

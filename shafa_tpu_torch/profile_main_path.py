@@ -68,7 +68,7 @@ STAGES = [
     (device.TorchBackend, "fused_pack"), (device.TorchBackend, "_pack_rows"),
     (device.TorchBackend, "fused_decode"),
     (device.TorchBackend, "_expand_rows"),
-    (krle, "rle_encode_batch"), (krle, "rle_payloads"),
+    (krle, "rle_encode_hist"), (krle, "rle_payloads"),
     (khist, "histogram_batch"), (kpack, "pack_batch"),
     (kops, "compact_rows"), (kdecode, "decode_batch"),
     (kdecode, "rank_planes"),

@@ -135,13 +135,13 @@ import sys
 from shafa_tpu_torch import bench
 from shafa_tpu_torch.kernels import pack, rle
 if sys.argv[1] == "rle":
-    real = rle.rle_encode_batch
+    real = rle.rle_encode_hist
     def faulty(x, lengths):
-        enc, enc_len = real(x, lengths)
+        enc, enc_len, hist = real(x, lengths)
         enc = enc.clone()
         enc[0, 5] ^= 1
-        return enc, enc_len
-    rle.rle_encode_batch = faulty
+        return enc, enc_len, hist
+    rle.rle_encode_hist = faulty
 else:
     real = pack.pack_batch
     def faulty(*args):

@@ -11,8 +11,9 @@ import pytest
 from shafa_tpu import oracle as joracle
 from shafa_tpu_torch import bench_stages
 
-STAGES = ["rle_encode", "rle_payloads", "emit_bits_rows", "histogram(rle)",
-          "codes (host, C++)", "pack_words(production)", "compact_words"]
+STAGES = ["rle_encode", "rle_payloads (old route)",
+          "emit_bits_rows (old route)", "histogram(raw)", "codes (host, C++)",
+          "pack_words(production)", "compact_words"]
 ROOFLINES = ["rle_encode", "rle_payloads", "emit_bits_rows", "histogram",
              "pack_words", "compact_words"]
 
@@ -29,7 +30,7 @@ def test_bench_stages_runs_on_the_cpu(monkeypatch, capsys):
     lines = capsys.readouterr().out.splitlines()
     stages = [ln for ln in lines if " ms" in ln and "roofline" not in ln]
     assert [ln.strip().split("  ")[0] for ln in stages] == STAGES
-    # rle_encode's two parts are indented beneath it
+    # the route K8 replaced is indented beneath rle_encode
     assert [ln.startswith("  ") for ln in stages] == [
         False, True, True, False, False, False, False]
     bounds = [ln for ln in lines if ln.startswith("  roofline[")]

@@ -1,4 +1,4 @@
-"""K1-K7 on a CUDA card against their plain PyTorch versions.
+"""K1-K8 on a CUDA card against their plain PyTorch versions.
 
 Marked ``gpu``: without a card every test skips (decided in the ``cuda``
 fixture). On the card: ``python -m pytest tests/test_torch_kernels_gpu.py``.
@@ -102,6 +102,31 @@ def test_rle_encode(cuda):
     assert torch.equal(got[1].cpu(), want[1])
     for i, n in enumerate(want[1].tolist()):
         assert torch.equal(got[0][i, :n].cpu(), want[0][i, :n])
+
+
+@pytest.mark.parametrize("case", ["corpus", "edge"])
+def test_rle_encode_hist(cuda, case):
+    """K8 against its plain version, 5 runs: the corpus rows and a 200 KB
+    mixed row, or K8's edge rows at its own tile (chip_smoke.k8_edge_rows,
+    1 MiB wide)."""
+    from chip_smoke import k8_edge_rows
+    if case == "corpus":
+        x, lens = _stack_blocks([np.frombuffer(v, np.uint8) for _, v in
+                                 sorted(edge_cases().items())]
+                                + [np.frombuffer(mixed(200_000, seed=5),
+                                                 np.uint8)])
+    else:
+        tile = _build.library().shafa_rle_encode_tile_bytes()
+        x, lens = k8_edge_rows(tile, 1 << 20, seed=2)
+    want, got = _both(rle.rle_encode_hist, x, lens)
+    on_card = [torch.from_numpy(a).cuda() for a in (x, lens)]
+    for run in range(5):
+        if run:
+            got = rle.rle_encode_hist(*on_card)
+        assert torch.equal(got[1].cpu(), want[1])
+        assert torch.equal(got[2].cpu(), want[2])
+        for i, n in enumerate(want[1].tolist()):
+            assert torch.equal(got[0][i, :n].cpu(), want[0][i, :n])
 
 
 def _archive(blocks):

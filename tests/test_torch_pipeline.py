@@ -108,8 +108,8 @@ def test_fused_tier_over_several_batches(tmp_path, monkeypatch, capsys,
             return fn(*args, **kwargs)
         return wrapper
 
-    monkeypatch.setattr(krle, "rle_encode_batch",
-                        counted("encode", krle.rle_encode_batch))
+    monkeypatch.setattr(krle, "rle_encode_hist",
+                        counted("encode", krle.rle_encode_hist))
     monkeypatch.setattr(kdecode, "decode_batch",
                         counted("decode", kdecode.decode_batch))
     size = 4 * (64 << 10) + 20_000

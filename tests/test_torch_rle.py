@@ -1,7 +1,8 @@
-"""RLE encode (K1's bits variant), the histogram, the token scan and the
-run expansion (K4's entry, plain on the CPU) of shafa_tpu_torch against the JAX
-package: its Pallas kernels in interpret mode, its XLA stages and its numpy
-oracles. Same inputs from numpy seeds and tests/corpus.py; exact equality.
+"""RLE encode (K8's entry, plain on the CPU), the histogram, the token scan
+and the run expansion (K4's entry, plain on the CPU) of shafa_tpu_torch
+against the JAX package: its Pallas kernels in interpret mode, its XLA
+stages and its numpy oracles. Same inputs from numpy seeds, tests/corpus.py
+and chip_smoke.k8_edge_rows; exact equality.
 """
 
 import numpy as np
@@ -14,8 +15,9 @@ from shafa_tpu import oracle
 from shafa_tpu.kernels import expand_pallas as jexp
 from shafa_tpu.kernels import histogram as jhist
 from shafa_tpu.kernels import rle as jrle
-from shafa_tpu_torch.kernels import expand, histogram, rle
+from shafa_tpu_torch.kernels import _build, expand, histogram, rle
 
+from chip_smoke import k8_edge_rows
 from corpus import edge_cases, mixed, runs_heavy
 
 
@@ -55,6 +57,67 @@ def test_rle_encode_matches_pallas_and_oracle():
         np.testing.assert_array_equal(enc[i, :n].numpy(), want,
                                       err_msg=f"row {i}")
         np.testing.assert_array_equal(enc[i, :n].numpy(), jenc[i, :n])
+
+
+#: K8's inputs at CPU size: the corpus rows, and k8_edge_rows at tiles of
+#: 64 and 256 bytes (runs across tiles, 0x00 runs of 1-3 and 254-511 bytes,
+#: lengths 0-3 and tile +- 1, bytes past each length equal to the last)
+ENCODE_HIST_CASES = {
+    "corpus": lambda: _stack(_encode_rows()),
+    "edge_tile64": lambda: k8_edge_rows(64, 4096, seed=3),
+    "edge_tile256": lambda: k8_edge_rows(256, 8192, seed=4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ENCODE_HIST_CASES))
+def test_rle_encode_hist_matches_pallas_histogram_and_oracle(case):
+    x, lens = ENCODE_HIST_CASES[case]()
+    enc, out_len, hist = rle.rle_encode_hist(torch.from_numpy(x),
+                                             torch.from_numpy(lens))
+    assert enc.shape == (x.shape[0], rle.rle_out_bound(x.shape[1]))
+    assert out_len.dtype == hist.dtype == torch.int64
+    jenc, jlen = jrle.rle_encode_batch_pallas(jnp.asarray(x),
+                                              jnp.asarray(lens),
+                                              interpret=True)
+    np.testing.assert_array_equal(out_len.numpy(), np.asarray(jlen))
+    np.testing.assert_array_equal(
+        hist.numpy(), np.asarray(jhist.histogram_batch(jenc, jlen)))
+    jenc = np.asarray(jenc)
+    for i, n in enumerate(lens):
+        want = oracle.rle_encode(x[i, :n])
+        assert int(out_len[i]) == want.size, f"row {i}"
+        np.testing.assert_array_equal(enc[i, :want.size].numpy(), want,
+                                      err_msg=f"row {i}")
+        np.testing.assert_array_equal(jenc[i, :want.size], want)
+        np.testing.assert_array_equal(hist[i].numpy(),
+                                      oracle.histogram(want))
+
+
+@pytest.mark.parametrize("missing", ["library", "cuda_tensor"])
+def test_rle_encode_hist_off_the_cpu_never_takes_the_plain_version(
+        missing, monkeypatch, tmp_path):
+    """Tensors off the CPU go to K8: without its library (here no nvcc),
+    or given tensors that are not CUDA tensors, the wrapper raises."""
+    def plain(*args):
+        raise AssertionError("the plain version ran off the CPU")
+    monkeypatch.setattr(rle, "rle_encode_hist_plain", plain)
+    x = torch.zeros((2, 256), dtype=torch.uint8, device="meta")
+    lens = torch.zeros(2, dtype=torch.int32, device="meta")
+    launched = _build.launches["rle_encode"]
+    if missing == "library":
+        def no_nvcc():
+            raise RuntimeError("nvcc not found: the CUDA kernels cannot be "
+                               "built")
+        monkeypatch.setattr(_build, "ptr", lambda t, *args: 0)
+        monkeypatch.setattr(_build, "_lib", None)
+        monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+        monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            rle.rle_encode_hist(x, lens)
+    else:
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            rle.rle_encode_hist(x, lens)
+    assert _build.launches["rle_encode"] == launched
 
 
 def test_rle_analyze_matches_jax():
