@@ -57,7 +57,7 @@ _SIGNATURES = {
     "shafa_fsm32_tile_bytes": [],
     "shafa_fsm32": [_P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _P, _P],
     "shafa_rle_encode_tile_bytes": [],
-    "shafa_rle_encode": [_P, _P, _I, _L, _P, _P, _P, _L, _P, _P, _P],
+    "shafa_rle_encode": [_P, _P, _I, _L, _P, _P, _L, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -2,8 +2,9 @@
 F's block_compression, f.c:29-55; module D's rle_block_decompressor,
 d.c:116-197).
 
-Port of shafa_tpu/kernels/rle.py. On the card the encode is K8, one kernel
-for the run analysis, the byte emission and the histogram of the RLE rows.
+Port of shafa_tpu/kernels/rle.py. On the card the encode is K8, one launch
+(one pass with decoupled look-backs) for the run analysis, the byte emission
+and the histogram of the RLE rows.
 Its plain version, the CPU's route, is the JAX package's composition in
 plain torch: the per-lane run analysis (_rle_analyze, rle_payloads), K1's
 plain emission and the histogram. The decoder's token starts are the orbit
@@ -108,17 +109,16 @@ def rle_encode_hist(x: torch.Tensor, lengths: torch.Tensor):
     lengths = lengths.to(dev, torch.int32).contiguous()
     args = [_build.ptr(x, torch.uint8, (b, p), dev),
             _build.ptr(lengths, torch.int32, (b,), dev)]
-    lib = _build.library()
-    n_tiles = -(-p // lib.shafa_rle_encode_tile_bytes())
+    n_tiles = -(-p // _build.library().shafa_rle_encode_tile_bytes())
     stride = rle_out_bound(p)
-    tile_i32 = torch.empty((2, b, n_tiles), dtype=torch.int32, device=dev)
-    tile_i64 = torch.empty((2, b, n_tiles), dtype=torch.int64, device=dev)
+    # the look-back's words of the two carries per tile, then the ticket
+    status = torch.empty(2 * b * n_tiles + 1, dtype=torch.int64, device=dev)
     enc = torch.empty((b, stride), dtype=torch.uint8, device=dev)
     out_len = torch.empty(b, dtype=torch.int64, device=dev)
     hist = torch.empty((b, 256), dtype=torch.int64, device=dev)
     _build.launch("rle_encode", dev, "shafa_rle_encode", *args, b, p,
-                  tile_i32.data_ptr(), tile_i64.data_ptr(), enc.data_ptr(),
-                  stride, out_len.data_ptr(), hist.data_ptr())
+                  status.data_ptr(), enc.data_ptr(), stride,
+                  out_len.data_ptr(), hist.data_ptr())
     return enc, out_len, hist
 
 

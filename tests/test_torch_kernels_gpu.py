@@ -129,6 +129,56 @@ def test_rle_encode_hist(cuda, case):
             assert torch.equal(got[0][i, :n].cpu(), want[0][i, :n])
 
 
+#: K8's launches in a row per batch in test_rle_encode_hist_many_launches
+K8_REPEATS = 60
+
+
+def _k8_batches(case, rows):
+    """K8's batches of `rows` rows: its edge rows (chip_smoke.k8_edge_rows
+    at its own tile, 1 MiB wide; alone: the row of runs at tile edges, the
+    0x00 runs across tiles, the one-byte row whose every tile takes its run
+    start from tile 0, the alternating 0x00 / x row), or rows of the mixed
+    and text corpora (4 MiB alone, 1 MiB in eights, the last cut short)."""
+    from chip_smoke import k8_edge_rows
+    if case == "edge":
+        x, lens = k8_edge_rows(_build.library().shafa_rle_encode_tile_bytes(),
+                               1 << 20, seed=rows)
+        if rows == 1:
+            return [(x[i:i + 1], lens[i:i + 1]) for i in (0, 1, 2, 5)]
+        return [(x[:8], lens[:8]), (x[-8:], lens[-8:])]
+    n = (4 << 20) if rows == 1 else (1 << 20)
+    half = max(rows // 2, 1)
+    text = np.frombuffer(text_with_rare_bytes(half * n), np.uint8)
+    blocks = [np.frombuffer(mixed(n, seed=s), np.uint8) for s in range(half)]
+    blocks += [text[i * n:(i + 1) * n] for i in range(half)]
+    if rows == 1:
+        return [_stack_blocks([b]) for b in blocks]
+    blocks[-1] = blocks[-1][:n - 12_345]
+    return [_stack_blocks(blocks)]
+
+
+@pytest.mark.parametrize("rows", [1, 8])
+@pytest.mark.parametrize("case", ["edge", "corpus"])
+def test_rle_encode_hist_many_launches(cuda, case, rows):
+    """K8 K8_REPEATS times in a row on each batch, exact against its plain
+    version every time (out_len, the bytes below it, hist): a look-back
+    race that shows only sometimes has that many chances to show."""
+    for x, lens in _k8_batches(case, rows):
+        want = [t.cuda() for t in rle.rle_encode_hist(torch.from_numpy(x),
+                                                     torch.from_numpy(lens))]
+        sizes = want[1].tolist()
+        xs, ls = torch.from_numpy(x).cuda(), torch.from_numpy(lens).cuda()
+        before = _build.launches["rle_encode"]
+        for run in range(K8_REPEATS):
+            enc, out_len, hist = rle.rle_encode_hist(xs, ls)
+            assert torch.equal(out_len, want[1]), f"run {run}"
+            assert torch.equal(hist, want[2]), f"run {run}"
+            for i, n in enumerate(sizes):
+                assert torch.equal(enc[i, :n], want[0][i, :n]), \
+                    f"run {run}, row {i}"
+        assert _build.launches["rle_encode"] == before + K8_REPEATS
+
+
 def _archive(blocks):
     hists = np.stack([oracle.histogram(b) for b in blocks])
     tables = codes_mod.build_code_tables(hists)
