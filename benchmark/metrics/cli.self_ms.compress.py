@@ -1,0 +1,9 @@
+"""cli.self_ms.compress: the CLI's own time in a compress: each call's wall
+less the wall of the pipeline entry it calls, both on the host's clock (the
+probes' wrapper), mean over the window's calls, in ms."""
+
+from harness import reduce
+
+
+def read(run):
+    return reduce.cli_self_ms(run, "compress")
