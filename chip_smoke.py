@@ -928,10 +928,17 @@ def k1_k5_edge_phase(dev) -> None:
           f"rows of {plens.tolist()} bytes", flush=True)
 
 
+#: Blocks that run_cli's calls decoded on the host by design since the
+#: phase set it to 0: each call's counter (tracing.counters, which every
+#: cli.main resets) added up.
+HOST_DECODED = [0]
+
+
 def run_cli(argv: list[str], log) -> None:
-    from shafa_tpu_torch import cli
+    from shafa_tpu_torch import cli, tracing
     with contextlib.redirect_stdout(log):
         rc = cli.main(argv)
+    HOST_DECODED[0] += tracing.counters()["host_decoded_blocks"]
     if rc != 0:
         fail(f"shafa_tpu_torch {' '.join(argv)} exited {rc}")
 
@@ -971,7 +978,6 @@ def main_path(work: str, name: str, data: bytes) -> dict:
     counts read around it."""
     import torch
     from shafa_tpu_torch import formats
-    from shafa_tpu_torch.device import TorchBackend
     from shafa_tpu_torch.kernels import _build
 
     path = os.path.join(work, f"{name}.bin")
@@ -979,7 +985,7 @@ def main_path(work: str, name: str, data: bytes) -> dict:
         fp.write(data)
     log = io.StringIO()
     _build.reset_launches()
-    TorchBackend.host_decoded_blocks = 0
+    HOST_DECODED[0] = 0
     torch.cuda.synchronize()
     with refused(*plain_stages()):
         t0 = time.perf_counter()
@@ -1000,9 +1006,8 @@ def main_path(work: str, name: str, data: bytes) -> dict:
     missing = [k for k in PATH_KERNELS[name] if launches[k] < 1]
     if missing:
         fail(f"{name}: {missing} not launched on the main path: {launches}")
-    if TorchBackend.host_decoded_blocks:
-        fail(f"{name}: {TorchBackend.host_decoded_blocks} blocks decoded on "
-             "the host")
+    if HOST_DECODED[0]:
+        fail(f"{name}: {HOST_DECODED[0]} blocks decoded on the host")
     with open(path + ".rle.cod", "rb") as fp:
         _, _, tables = formats.parse_cod_tables(fp.read())
     maxlen = tables.lens.max(axis=1)
@@ -1080,7 +1085,6 @@ def streaming_path(work: str) -> dict:
     each streaming step are kept on the host for stream_kernel_phase."""
     import torch
     from shafa_tpu_torch import pipeline
-    from shafa_tpu_torch.device import TorchBackend
     from shafa_tpu_torch.kernels import _build, decode, expand, pack, rle
     from shafa_tpu_torch.profile_main_path import synthetic
 
@@ -1111,7 +1115,7 @@ def streaming_path(work: str) -> dict:
         print(f"streaming phase, {name}: {walls[name]:.3f} s, launches "
               f"{dict(_build.launches)}", flush=True)
 
-    TorchBackend.host_decoded_blocks = 0
+    HOST_DECODED[0] = 0
     with refused(*plain_stages()), \
             recorded(pipeline, "compress_pipeline_streaming",
                      "_module_d_shafa_streaming",
@@ -1168,9 +1172,8 @@ def streaming_path(work: str) -> dict:
     missing = [k for k in PATH_KERNELS["streaming"] if launches.get(k, 0) < 1]
     if missing:
         fail(f"streaming: {missing} not launched: {launches}")
-    if TorchBackend.host_decoded_blocks:
-        fail(f"streaming: {TorchBackend.host_decoded_blocks} blocks decoded "
-             "on the host")
+    if HOST_DECODED[0]:
+        fail(f"streaming: {HOST_DECODED[0]} blocks decoded on the host")
     return dict(launches=launches, walls=walls, peaks=peaks, sizes=sizes,
                 blocks=reps[0].n_blocks, args=args)
 
@@ -1281,8 +1284,7 @@ def multihost_rank(rank: int, path: str, ports, barrier, results,
         os.environ["CUDA_VISIBLE_DEVICES"] = visible
     sys.path.insert(0, repo)
     import torch
-    from shafa_tpu_torch import cli
-    from shafa_tpu_torch.device import TorchBackend
+    from shafa_tpu_torch import cli, tracing
     from shafa_tpu_torch.kernels import _build
 
     from shafa_tpu_torch.profile_main_path import synthetic
@@ -1310,7 +1312,6 @@ def multihost_rank(rank: int, path: str, ports, barrier, results,
         os.environ["COORDINATOR_ADDRESS"] = f"127.0.0.1:{port}"
         barrier.wait()
         _build.reset_launches()
-        TorchBackend.host_decoded_blocks = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
@@ -1319,7 +1320,7 @@ def multihost_rank(rank: int, path: str, ports, barrier, results,
         results.put((rank, step, dict(
             rc=rc, s=time.perf_counter() - t0,
             launches=dict(_build.launches),
-            host_decoded=TorchBackend.host_decoded_blocks,
+            host_decoded=tracing.counters()["host_decoded_blocks"],
             card=props.name, uuids=uuids)))
         if rc:
             return
@@ -1416,7 +1417,6 @@ def multidevice_path(work: str, data: bytes, want: dict, devs) -> dict:
     round trip."""
     import torch
     from shafa_tpu_torch import dist, dryrun
-    from shafa_tpu_torch.device import TorchBackend
     from shafa_tpu_torch.kernels import _build
 
     block_devices = dist.block_devices
@@ -1433,7 +1433,7 @@ def multidevice_path(work: str, data: bytes, want: dict, devs) -> dict:
     def make_recorded(*args, **kwargs):
         made.append(make(*args, **kwargs))
         return made[-1]
-    TorchBackend.host_decoded_blocks = 0
+    HOST_DECODED[0] = 0
     _build.reset_launches()
     torch.cuda.synchronize()
     with patched(dist, "block_devices",
@@ -1461,7 +1461,7 @@ def multidevice_path(work: str, data: bytes, want: dict, devs) -> dict:
     missing = [k for k in PATH_KERNELS["multidevice"] if launches[k] < 1]
     if missing:
         fail(f"multidevice: {missing} not launched: {launches}")
-    if TorchBackend.host_decoded_blocks:
+    if HOST_DECODED[0]:
         fail("multidevice: blocks decoded on the host")
     for f in (path, path + ".orig") + tuple(path + e for e in RLE_EXTS):
         os.remove(f)
@@ -1653,7 +1653,6 @@ def text_stream_path(work: str) -> dict:
     decode batch are kept on the host for text_kernel_phase."""
     import torch
     from shafa_tpu_torch import formats, pipeline
-    from shafa_tpu_torch.device import TorchBackend
     from shafa_tpu_torch.kernels import _build, decode, pack
     from shafa_tpu_torch.profile_main_path import text_with_rare_bytes
 
@@ -1666,7 +1665,7 @@ def text_stream_path(work: str) -> dict:
         fp.write(data)
     del data
     launches, walls, peaks = {}, {}, {}
-    TorchBackend.host_decoded_blocks = 0
+    HOST_DECODED[0] = 0
     with refused(*plain_stages()), \
             recorded(pipeline, "compress_pipeline_streaming",
                      "_module_d_shafa_streaming") as calls, \
@@ -1709,9 +1708,8 @@ def text_stream_path(work: str) -> dict:
     missing = [k for k in PATH_KERNELS["text_stream"] if launches[k] < 1]
     if missing:
         fail(f"text -b M: {missing} not launched: {launches}")
-    if TorchBackend.host_decoded_blocks:
-        fail(f"text -b M: {TorchBackend.host_decoded_blocks} blocks decoded "
-             "on the host")
+    if HOST_DECODED[0]:
+        fail(f"text -b M: {HOST_DECODED[0]} blocks decoded on the host")
     sizes = {e: os.path.getsize(path + e) for e in RLE_EXTS}
     for f in (path,) + tuple(path + e for e in RLE_EXTS):
         os.remove(f)

@@ -5,10 +5,11 @@ Flags: <file>  -m f|t|c|d (repeatable)  -b K|m|M  -c r|f  -d s|r
        --no-multithread (one block per device batch, the fused tier off)
 Extra (not in the reference): --backend numpy|torch (default torch),
 --check (cross-verify every device stage against the numpy oracle),
---json PATH|- (structured per-module metrics), --profile DIR (a
-torch.profiler trace of the run, host activity and, on a CUDA device, the
-card's, written into DIR as TensorBoard's ``*.pt.trace.json``, which
-Perfetto opens too).
+--json PATH|- (structured per-module metrics, and the call's counters of
+tracing.py), --profile DIR (a torch.profiler trace of the run, host
+activity, with the port's spans (tracing.py) on every thread, and, on a
+CUDA device, the card's, written into DIR as TensorBoard's
+``*.pt.trace.json``, which Perfetto opens too).
 
 Differences from the JAX package's CLI:
   * ``--backend jax`` is a syntax error;
@@ -46,7 +47,7 @@ import os
 import sys
 import time
 
-from . import formats, geometry, pipeline
+from . import formats, geometry, pipeline, tracing
 from .errors import Code, ShafaError, error_msg
 from .pipeline import StageReport
 
@@ -206,8 +207,11 @@ def _print_summary_d(r: StageReport) -> None:
 
 def _emit_json(path: str, reports: list[StageReport], error: int) -> None:
     """Structured metrics (copy of shafa_tpu/cli.py:447-471): per-module
-    sizes, ratio, runtime and throughput."""
-    out = {"error": int(error), "modules": []}
+    sizes, ratio, runtime and throughput; and the call's counters
+    (tracing.counters: bytes copied each way and how many were pageable,
+    batches, file bytes, blocks decoded on the host)."""
+    out = {"error": int(error), "modules": [],
+           "counters": tracing.counters()}
     for r in reports:
         before, after = sum(r.sizes_before), sum(r.sizes_after)
         out["modules"].append({
@@ -229,6 +233,7 @@ def _emit_json(path: str, reports: list[StageReport], error: int) -> None:
             fp.write(data)
 
 
+@tracing.spanned("shafa.cli.make_backend")
 def _make_backend(opts):
     """The NumPy backend, or the device backend over the blocks' devices
     (dist.block_devices: every visible CUDA card, or the one named), one
@@ -253,14 +258,18 @@ def _process_count() -> int:
 
 
 def profiler(device_type: str, **kwargs):
-    """torch.profiler.profile over the host's activity and, for a CUDA
-    device, the card's (kwargs go to it). --profile and profile_main_path
-    trace through it."""
+    """torch.profiler.profile over the host's activity on every thread
+    (so that the spans of dist.ShardedBackend's workers and of the
+    streaming drivers' reader and writer are in it) and, for a CUDA
+    device, the card's (kwargs go to it). --profile traces through it."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device_type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    return torch.profiler.profile(activities=acts, **kwargs)
+    every_thread = torch._C._profiler._ExperimentalConfig(
+        profile_all_threads=True)
+    return torch.profiler.profile(activities=acts,
+                                  experimental_config=every_thread, **kwargs)
 
 
 def _execute_multihost(opts, path: str, backend) -> int | None:
@@ -440,6 +449,13 @@ def execute_modules(opts, path: str,
 
 
 def main(argv: list[str] | None = None) -> int:
+    """The CLI; its counters (tracing.counters) are this call's."""
+    tracing.reset()
+    with tracing.span("shafa.cli.main"):
+        return _main(argv)
+
+
+def _main(argv: list[str] | None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         print("No file input", file=sys.stderr)
@@ -484,7 +500,8 @@ def main(argv: list[str] | None = None) -> int:
         if opts.profile_dir:
             import torch
             with profiler(device_type, on_trace_ready=torch.profiler
-                          .tensorboard_trace_handler(opts.profile_dir)):
+                          .tensorboard_trace_handler(opts.profile_dir)), \
+                    tracing.span("shafa.cli.main"):
                 error = execute_modules(opts, file, reports)
         else:
             error = execute_modules(opts, file, reports)

@@ -32,6 +32,8 @@ from typing import Sequence
 
 import numpy as np
 
+from . import tracing
+
 NUM_SYMBOLS = 256
 
 
@@ -173,11 +175,12 @@ def build_code_tables(freqs: np.ndarray) -> CodeTables:
     if f.ndim != 2 or f.shape[1] != NUM_SYMBOLS:
         raise ValueError("need (n, 256) frequencies")
     from . import runtime
-    native = runtime.build_codes(f)
-    if native is not None:
-        lens, vals = native
-        return CodeTables(lens, vals)
-    return CodeTables.from_strings([build_codes(row) for row in f])
+    with tracing.span("shafa.codes.build"):
+        native = runtime.build_codes(f)
+        if native is not None:
+            lens, vals = native
+            return CodeTables(lens, vals)
+        return CodeTables.from_strings([build_codes(row) for row in f])
 
 
 def code_table_arrays(codes: Sequence[str], width: int = 32):

@@ -12,20 +12,24 @@ packed size could overflow int32 bit offsets, go to the NumPy oracle;
 all-empty tables go to the oracle; tables that are not Kraft-complete go to
 the trie-semantics slow decode. Decode splits at 16 bits of code width:
 codes of at most 16 bits take K2 -> K3, codes of 17-32 bits K5 -> K6 -> K1.
-``host_decoded_blocks`` counts the blocks that decode on the host by design.
+The counter ``host_decoded_blocks`` (tracing.py) counts the blocks that
+decode on the host by design.
+
+Every copy between the host and the card goes through ``_upload`` or
+``_download``, which count its bytes, whether the host side was pinned
+(``h2d_*`` / ``d2h_*`` counters) and give it a span.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import threading
 
 import numpy as np
 import torch
 
 from . import codes as codes_mod
-from . import oracle
+from . import oracle, tracing
 from .errors import FileUnrecognizableError
 from .kernels import decode as kdecode
 from .kernels import emit as kemit
@@ -99,15 +103,42 @@ def _stack_blocks(blocks, b_rows: int | None = None, minimum: int = 256):
 
     Copy of shafa_tpu/device.py:102: P is a power-of-two bucket; extra rows
     (b_rows) have length 0."""
-    lens_l = [b.size for b in blocks]
-    p = _bucket(max(lens_l) if blocks else 1, minimum=minimum)
-    rows = b_rows if b_rows is not None else len(blocks)
-    out = np.zeros((rows, p), dtype=np.uint8)
-    lens = np.zeros(rows, dtype=np.int32)
-    for i, b in enumerate(blocks):
-        out[i, : b.size] = b
-        lens[i] = b.size
-    return out, lens
+    with tracing.span("shafa.backend.stack"):
+        lens_l = [b.size for b in blocks]
+        p = _bucket(max(lens_l) if blocks else 1, minimum=minimum)
+        rows = b_rows if b_rows is not None else len(blocks)
+        out = np.zeros((rows, p), dtype=np.uint8)
+        lens = np.zeros(rows, dtype=np.int32)
+        for i, b in enumerate(blocks):
+            out[i, : b.size] = b
+            lens[i] = b.size
+        return out, lens
+
+
+def _count_copy(way: str, host: torch.Tensor) -> None:
+    """Count one copy (way "h2d" or "d2h") of the host tensor's bytes."""
+    tracing.count(f"{way}_copies")
+    tracing.count(f"{way}_bytes", host.nbytes)
+    if not host.is_pinned():
+        tracing.count(f"{way}_pageable_bytes", host.nbytes)
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on the device: the port's one host-to-device copy."""
+    host = torch.from_numpy(np.ascontiguousarray(a))
+    with tracing.span("shafa.backend.h2d"):
+        out = host.to(device)
+    _count_copy("h2d", host)
+    return out
+
+
+def _download(t: torch.Tensor) -> np.ndarray:
+    """A device tensor on the host: the port's one device-to-host copy,
+    which waits for the card's work on it."""
+    with tracing.span("shafa.backend.d2h"):
+        host = t.cpu()
+    _count_copy("d2h", host)
+    return host.numpy()
 
 
 def _split_rows(flat: np.ndarray, sizes) -> list[np.ndarray]:
@@ -123,18 +154,19 @@ def _split_rows(flat: np.ndarray, sizes) -> list[np.ndarray]:
 def download_packed(flat: torch.Tensor, woff, byte_lens) -> list[bytes]:
     """The rows of a packed word buffer (TorchBackend.pack_on_device), each
     row's exact bytes, after one download."""
-    buf = flat.cpu().numpy().view(np.uint8)
+    buf = _download(flat).view(np.uint8)
     return [buf[4 * int(w):4 * int(w) + int(n)].tobytes()
             for w, n in zip(woff, byte_lens)]
 
 
 def _pad_rows(a: np.ndarray, rows: int, fill_row: int = -1) -> np.ndarray:
     """a with rows appended up to `rows`: zeros, or copies of a[fill_row]."""
-    out = np.zeros((rows,) + a.shape[1:], a.dtype)
-    out[: a.shape[0]] = a
-    if fill_row >= 0 and rows > a.shape[0]:
-        out[a.shape[0]:] = a[fill_row]
-    return out
+    with tracing.span("shafa.backend.stack"):
+        out = np.zeros((rows,) + a.shape[1:], a.dtype)
+        out[: a.shape[0]] = a
+        if fill_row >= 0 and rows > a.shape[0]:
+            out[a.shape[0]:] = a[fill_row]
+        return out
 
 
 @dataclasses.dataclass
@@ -158,14 +190,13 @@ def tables_to_device(tables: codes_mod.CodeTables, device,
     with decode=True, K2/K3's tables (every row needs codes of 1-16 bits)."""
     cl = np.clip(tables.lens.astype(np.int32), 0, 32)
     cv = (tables.vals >> np.uint64(32)).astype(np.uint32).view(np.int32)
-    out = DeviceTables(torch.from_numpy(cl).to(device),
-                       torch.from_numpy(cv).to(device))
+    out = DeviceTables(_upload(cl, device), _upload(cv, device))
     if decode:
         pc16, ls = kdecode.rank_tables(
             kdecode.decode_tables_batch(tables.lens, tables.vals))
-        out.pc16 = torch.from_numpy(pc16).to(device)
-        out.ls = torch.from_numpy(ls).to(device)
-        out.lut12 = torch.from_numpy(kdecode.rank_lut12(pc16, ls)).to(device)
+        out.pc16 = _upload(pc16, device)
+        out.ls = _upload(ls, device)
+        out.lut12 = _upload(kdecode.rank_lut12(pc16, ls), device)
     return out
 
 
@@ -204,12 +235,6 @@ class TorchBackend:
     fused tier off, like shafa_tpu/device.py:207-215.
     """
 
-    #: Blocks decoded on the host by design, over all instances: codes over
-    #: 32 bits, overflow tables, no codes, or a table that is not complete.
-    #: Bumped under a lock: dist.ShardedBackend decodes on several threads.
-    host_decoded_blocks = 0
-    _host_decoded_lock = threading.Lock()
-
     def __init__(self, device=None, sequential: bool = False):
         self.device = torch.device(device) if device is not None \
             else default_device()
@@ -219,11 +244,10 @@ class TorchBackend:
         return 1 if self.sequential else max(1, MAX_BATCH_ELEMS // max(p, 1))
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return _upload(a, self.device)
 
     def _download_rows(self, rows: torch.Tensor, sizes) -> list[np.ndarray]:
-        flat = kops.compact_rows(rows, sizes).cpu().numpy()
-        return _split_rows(flat, sizes)
+        return _split_rows(_download(kops.compact_rows(rows, sizes)), sizes)
 
     # -- Backend protocol (per stage; one transfer each way per batch) ------
 
@@ -244,7 +268,7 @@ class TorchBackend:
         for lo in range(0, len(blocks), bsz):
             h = khist.histogram_batch(self._upload(stacked[lo:lo + bsz]),
                                       self._upload(lens[lo:lo + bsz]))
-            out.extend(h.cpu().numpy())
+            out.extend(_download(h))
         return out
 
     def pack(self, blocks, tables, hists=None):
@@ -262,14 +286,18 @@ class TorchBackend:
         stacked, lens = _stack_blocks([blocks[i] for i in fast])
         bsz = self._bsz(stacked.shape[1])
         for lo in range(0, len(fast), bsz):
-            idx = fast[lo:lo + bsz]
-            x = self._upload(stacked[lo:lo + len(idx)])
-            ld = self._upload(lens[lo:lo + len(idx)])
-            hist = (khist.histogram_batch(x, ld).cpu().numpy()
-                    if hists is None else np.asarray(hists)[idx])
-            sub = codes_mod.CodeTables(tables.lens[idx], tables.vals[idx])
-            for i, payload in zip(idx, self._pack_rows(x, ld, hist, sub)):
-                results[i] = payload
+            with tracing.span("shafa.backend.pack_batch"):
+                tracing.count("pack_batches")
+                idx = fast[lo:lo + bsz]
+                x = self._upload(stacked[lo:lo + len(idx)])
+                ld = self._upload(lens[lo:lo + len(idx)])
+                hist = (_download(khist.histogram_batch(x, ld))
+                        if hists is None else np.asarray(hists)[idx])
+                sub = codes_mod.CodeTables(tables.lens[idx],
+                                           tables.vals[idx])
+                for i, payload in zip(idx, self._pack_rows(x, ld, hist,
+                                                           sub)):
+                    results[i] = payload
         return results
 
     def unpack(self, payloads, tables, out_counts):
@@ -323,14 +351,14 @@ class TorchBackend:
         """RLE-expand the first n rows of a device batch to host arrays:
         K4's sizes, their download, then K4's expansion of those n rows."""
         flat, sizes = self.expand_on_device(x, lengths, n)
-        return _split_rows(flat.cpu().numpy(), sizes)
+        return _split_rows(_download(flat), sizes)
 
     @staticmethod
     def expand_on_device(x, lengths, n: int):
         """K4 on the first n rows of a device batch, left on the card: (their
         expansions back to back, each row's size on the host)."""
         dev_sizes = kexpand.rle_expand_sizes(x, lengths)
-        sizes = dev_sizes["out_len"].cpu().numpy()[:n]
+        sizes = _download(dev_sizes["out_len"])[:n]
         return kexpand.rle_expand(dev_sizes, int(sizes.sum())), sizes
 
     # -- fused device-resident tier (pipeline fast path) ---------------------
@@ -366,20 +394,23 @@ class TorchBackend:
         (K8), in a new handle (uploaded can be encoded again)."""
         h = _EncodeHandle()
         for b in uploaded.batches:
-            enc, enc_len, hist = krle.rle_encode_hist(b["x"], b["lens_dev"])
+            with tracing.span("shafa.backend.encode_batch"):
+                tracing.count("encode_batches")
+                enc, enc_len, hist = krle.rle_encode_hist(b["x"],
+                                                          b["lens_dev"])
             h.batches.append(dict(b, enc=enc, enc_len=enc_len, hist=hist))
         return h
 
     @staticmethod
     def _enc_sizes(b) -> np.ndarray:
         if "enc_sizes" not in b:
-            b["enc_sizes"] = b["enc_len"].cpu().numpy()
+            b["enc_sizes"] = _download(b["enc_len"])
         return b["enc_sizes"]
 
     def fused_rle_hists(self, h: _EncodeHandle):
         """(n_blocks, 256) int64 histograms of the RLE streams."""
         return np.concatenate(
-            [b["hist"][: b["n"]].cpu().numpy() for b in h.batches]
+            [_download(b["hist"][: b["n"]]) for b in h.batches]
         ) if h.batches else np.zeros((0, 256), np.int64)
 
     def fused_raw_hists(self, h: _EncodeHandle):
@@ -387,8 +418,8 @@ class TorchBackend:
         the pack reuses them for exact packed sizes."""
         for b in h.batches:
             if "raw_hist" not in b:
-                b["raw_hist"] = khist.histogram_batch(
-                    b["x"], b["lens_dev"]).cpu().numpy()
+                b["raw_hist"] = _download(khist.histogram_batch(
+                    b["x"], b["lens_dev"]))
         return np.concatenate(
             [b["raw_hist"][: b["n"]] for b in h.batches]
         ) if h.batches else np.zeros((0, 256), np.int64)
@@ -400,8 +431,9 @@ class TorchBackend:
 
     def fused_rle_bytes(self, h: _EncodeHandle) -> np.ndarray:
         """All RLE streams concatenated in block order (exact bytes)."""
-        parts = [kops.compact_rows(b["enc"], self._enc_sizes(b)[: b["n"]])
-                 .cpu().numpy() for b in h.batches]
+        parts = [_download(kops.compact_rows(b["enc"],
+                                             self._enc_sizes(b)[: b["n"]]))
+                 for b in h.batches]
         return np.concatenate(parts) if parts else np.zeros(0, np.uint8)
 
     def fused_pack(self, h: _EncodeHandle, tables, use_rle: bool,
@@ -424,29 +456,34 @@ class TorchBackend:
         """fused_pack's batches, one at a time: the rows routed to the
         oracle get their payloads in results; yields (first block, true
         rows, args) for each batch, where pack_on_device(*args) packs the
-        other rows on the card."""
+        other rows on the card. A batch's span stays open while the caller
+        packs it."""
         base = 0
         if not use_rle:
             self.fused_raw_hists(h)  # ensure cached
         for b in h.batches:
-            n = b["n"]
-            src = b["enc"] if use_rle else b["x"]
-            src_len = (self._enc_sizes(b) if use_rle else b["lens"]).copy()
-            src_len[n:] = 0
-            for j in range(n):
-                i = base + j
-                if self._pack_fallback(i, tables, lambda i=i: host_row(i),
-                                       src_len[j], results):
-                    src_len[j] = 0  # mask out of the kernel pass
-            rows = src_len.shape[0]
-            sel = list(range(base, base + n))
-            sub = codes_mod.CodeTables(_pad_rows(tables.lens[sel], rows),
-                                       _pad_rows(tables.vals[sel], rows))
-            hist = (b["hist"].cpu().numpy() if use_rle
-                    else b["raw_hist"]).copy()
-            hist[src_len == 0] = 0  # padding and oracle-routed rows
-            yield base, n, (src, self._upload(src_len.astype(np.int32)),
-                            hist, sub)
+            with tracing.span("shafa.backend.pack_batch"):
+                tracing.count("pack_batches")
+                n = b["n"]
+                src = b["enc"] if use_rle else b["x"]
+                src_len = (self._enc_sizes(b) if use_rle
+                           else b["lens"]).copy()
+                src_len[n:] = 0
+                for j in range(n):
+                    i = base + j
+                    if self._pack_fallback(i, tables,
+                                           lambda i=i: host_row(i),
+                                           src_len[j], results):
+                        src_len[j] = 0  # mask out of the kernel pass
+                rows = src_len.shape[0]
+                sel = list(range(base, base + n))
+                sub = codes_mod.CodeTables(_pad_rows(tables.lens[sel], rows),
+                                           _pad_rows(tables.vals[sel], rows))
+                hist = (_download(b["hist"]) if use_rle
+                        else b["raw_hist"]).copy()
+                hist[src_len == 0] = 0  # padding and oracle-routed rows
+                yield base, n, (src, self._upload(src_len.astype(np.int32)),
+                                hist, sub)
             base += n
 
     def fused_decode(self, payloads, tables, out_counts,
@@ -478,8 +515,7 @@ class TorchBackend:
             else:
                 fast32.append(i)
         if on_host:
-            with TorchBackend._host_decoded_lock:
-                TorchBackend.host_decoded_blocks += on_host
+            tracing.count("host_decoded_blocks", on_host)
         if fast16:
             self._decode_group(payloads, tables, out_counts, expand, fast16,
                                results, wide=False)
@@ -492,35 +528,39 @@ class TorchBackend:
                        wide: bool):
         """The blocks of group, whose codes have 17-32 bits if wide and at
         most 16 if not, in decode batches on the card with their tables, one
-        batch at a time (shafa_tpu/device.py:602-672)."""
+        batch at a time (shafa_tpu/device.py:602-672). A batch's span stays
+        open while the caller decodes it."""
         blocks = [np.frombuffer(payloads[i], np.uint8) for i in group]
         p = _bucket(max(b.size for b in blocks), minimum=1024)
         bsz = self._bsz(p * 2)
         counts_all = np.array([out_counts[i] for i in group], np.int32)
         out_p = _bucket(int(counts_all.max()))
         for lo in range(0, len(group), bsz):
-            rows = blocks[lo:lo + bsz]
-            nb = len(rows)
-            b_rows = _row_bucket(nb, bsz)
-            stacked, plens = _stack_blocks(rows, b_rows, minimum=1024)
-            counts = _pad_rows(counts_all[lo:lo + nb], b_rows)
-            sel = group[lo:lo + nb]
-            # padding rows need a decodable table: copy the first row's
-            sub = codes_mod.CodeTables(_pad_rows(tables.lens[sel], b_rows, 0),
-                                       _pad_rows(tables.vals[sel], b_rows, 0))
-            if wide:
-                pc32, ls, ncodes = kdecode.rank_tables32(
-                    kdecode.decode_tables_batch(sub.lens, sub.vals))
-                lut = kdecode.rank_lut12_32(pc32, ls, ncodes)
-                tabs = tuple(map(self._upload, (pc32, ls, ncodes, lut)))
-                s_states = 32
-            else:
-                dt = tables_to_device(sub, self.device, decode=True)
-                tabs = (dt.pc16, dt.ls, dt.lut12)
-                s_states = 8 if int(sub.lens.max()) <= 8 else 16
-            yield DecodeBatch(sel, self._upload(stacked),
-                              self._upload(plens), counts,
-                              self._upload(counts), out_p, s_states, tabs)
+            with tracing.span("shafa.backend.decode_batch"):
+                tracing.count("decode_batches")
+                rows = blocks[lo:lo + bsz]
+                nb = len(rows)
+                b_rows = _row_bucket(nb, bsz)
+                stacked, plens = _stack_blocks(rows, b_rows, minimum=1024)
+                counts = _pad_rows(counts_all[lo:lo + nb], b_rows)
+                sel = group[lo:lo + nb]
+                # padding rows need a decodable table: copy the first row's
+                sub = codes_mod.CodeTables(
+                    _pad_rows(tables.lens[sel], b_rows, 0),
+                    _pad_rows(tables.vals[sel], b_rows, 0))
+                if wide:
+                    pc32, ls, ncodes = kdecode.rank_tables32(
+                        kdecode.decode_tables_batch(sub.lens, sub.vals))
+                    lut = kdecode.rank_lut12_32(pc32, ls, ncodes)
+                    tabs = tuple(map(self._upload, (pc32, ls, ncodes, lut)))
+                    s_states = 32
+                else:
+                    dt = tables_to_device(sub, self.device, decode=True)
+                    tabs = (dt.pc16, dt.ls, dt.lut12)
+                    s_states = 8 if int(sub.lens.max()) <= 8 else 16
+                yield DecodeBatch(sel, self._upload(stacked),
+                                  self._upload(plens), counts,
+                                  self._upload(counts), out_p, s_states, tabs)
 
     @staticmethod
     def decode_on_device(bt: DecodeBatch):
@@ -540,7 +580,7 @@ class TorchBackend:
                                       wide):
             nb = len(bt.blocks)
             dec, under = self.decode_on_device(bt)
-            if bool(under[:nb].any()):
+            if bool(_download(under[:nb].any())):
                 raise FileUnrecognizableError(
                     "compressed stream exhausted early")
             if expand:

@@ -32,6 +32,7 @@ import concurrent.futures as cf
 import numpy as np
 import torch
 
+from . import tracing
 from .device import TorchBackend, default_device
 from .pipeline import _sub_tables
 
@@ -101,10 +102,14 @@ class ShardedBackend:
         """[(device index, fn, args)] -> fn(backend, *args) of each on its
         device's worker, results in the order given. Every call finishes
         before the first error, if any, is raised."""
-        futs = [self._workers[k].submit(fn, self.backends[k], *args)
+        futs = [self._workers[k].submit(self._on_worker, k, fn, args)
                 for k, fn, args in calls]
         cf.wait(futs)
         return [f.result() for f in futs]
+
+    def _on_worker(self, k: int, fn, args):
+        with tracing.span(f"shafa.dist.worker.{k}"):
+            return fn(self.backends[k], *args)
 
     def _split(self, n: int, fn):
         """fn(backend, lo, hi) over each device's non-empty block range."""

@@ -29,7 +29,7 @@ from typing import Protocol, Sequence
 import numpy as np
 
 from . import codes as codes_mod
-from . import formats, geometry, oracle
+from . import formats, geometry, oracle, tracing
 from .errors import (FileInaccessibleError, FileTooSmallError,
                      FileUnrecognizableError, ShafaError)
 
@@ -77,7 +77,8 @@ class _AtomicFile:
 
     ``keep_on_error`` (the streaming pipelines' restart mode) retains the
     temp file on failure so a later run can resume it; ``resume_at`` opens
-    the existing temp and truncates to the last durable offset."""
+    the existing temp and truncates to the last durable offset. What a
+    successful opening wrote counts in ``file_written_bytes``."""
 
     def __init__(self, path: str, keep_on_error: bool = False,
                  resume_at: int | None = None):
@@ -86,6 +87,7 @@ class _AtomicFile:
         self.keep_on_error = keep_on_error
         self.resume_at = resume_at
         self.fp = None
+        self._start = 0
 
     def __enter__(self):
         if self.resume_at is not None and os.path.isfile(self.tmp):
@@ -94,9 +96,12 @@ class _AtomicFile:
             self.fp.seek(self.resume_at)
         else:
             self.fp = open(self.tmp, "wb")
+        self._start = self.fp.tell()
         return self.fp
 
     def __exit__(self, et, ev, tb):
+        if et is None:
+            tracing.count("file_written_bytes", self.fp.tell() - self._start)
         self.fp.close()
         if et is None:
             os.replace(self.tmp, self.path)
@@ -259,23 +264,34 @@ class StageReport:
     extra: dict = dataclasses.field(default_factory=dict)
 
 
-def _read_blocks(path: str, sizes: Sequence[int]) -> list[np.ndarray]:
+def _read_blocks(path: str, sizes: Sequence[int],
+                 kind: str) -> list[np.ndarray]:
+    """The blocks of a data stream (kind: input or rle), one read each."""
     out = []
-    with open(path, "rb") as fp:
+    with tracing.span(f"shafa.io.read.{kind}"), open(path, "rb") as fp:
         for s in sizes:
             buf = fp.read(s)
             if len(buf) != s:
                 raise FileUnrecognizableError(f"{path}: truncated block")
             out.append(np.frombuffer(buf, np.uint8))
+    tracing.count("file_read_bytes", sum(sizes))
     return out
 
 
-def _open_read(path: str) -> bytes:
+def _open_read(path: str, kind: str) -> bytes:
+    """A whole sidecar (kind: freq, cod or shaf)."""
     try:
-        with open(path, "rb") as fp:
-            return fp.read()
+        with tracing.span(f"shafa.io.read.{kind}"), open(path, "rb") as fp:
+            data = fp.read()
     except OSError as e:
         raise FileInaccessibleError(str(e)) from e
+    tracing.count("file_read_bytes", len(data))
+    return data
+
+
+def _data_kind(path: str) -> str:
+    """The io span kind of a data stream: rle or input."""
+    return "rle" if formats.check_ext(path, formats.RLE_EXT) else "input"
 
 
 def _over_stream_threshold(path: str) -> bool:
@@ -286,6 +302,7 @@ def _over_stream_threshold(path: str) -> bool:
 # Module F: RLE compression + frequency histograms (f.c:180-412)
 # ---------------------------------------------------------------------------
 
+@tracing.spanned("shafa.pipeline.f")
 def module_f(path: str, force_rle: bool, force_freq: bool, block_size: int,
              backend: Backend) -> tuple[str, StageReport]:
     t0 = time.perf_counter()
@@ -295,7 +312,7 @@ def module_f(path: str, force_rle: bool, force_freq: bool, block_size: int,
     if geo.total < geometry.MIN_FILE_SIZE:
         raise FileTooSmallError(path)
     sizes = geo.sizes()
-    blocks = _read_blocks(path, sizes)
+    blocks = _read_blocks(path, sizes, "input")
 
     # Gate decision from block 0 only (f.c:250-257).
     rle0 = backend.rle_encode(blocks[:1])[0]
@@ -309,17 +326,20 @@ def module_f(path: str, force_rle: bool, force_freq: bool, block_size: int,
         rle_blocks = [rle0] + backend.rle_encode(blocks[1:])
         rle_sizes = [b.size for b in rle_blocks]
         freqs = backend.histogram(rle_blocks)
-        with _AtomicFile(path_rle) as fp:
+        with tracing.span("shafa.io.write.rle"), \
+                _AtomicFile(path_rle) as fp:
             for b in rle_blocks:
                 fp.write(b.tobytes())
         path_rle_freq = formats.add_ext(path_rle, formats.FREQ_EXT)
-        with _AtomicFile(path_rle_freq) as fp:
+        with tracing.span("shafa.io.write.freq"), \
+                _AtomicFile(path_rle_freq) as fp:
             formats.write_freq_arrays(fp, "R", rle_sizes, np.stack(freqs))
         generated += [path_rle, path_rle_freq]
     if force_freq or not compress_rle:
         freqs = backend.histogram(blocks)
         path_freq = formats.add_ext(path, formats.FREQ_EXT)
-        with _AtomicFile(path_freq) as fp:
+        with tracing.span("shafa.io.write.freq"), \
+                _AtomicFile(path_freq) as fp:
             formats.write_freq_arrays(fp, "N", sizes, np.stack(freqs))
         generated.append(path_freq)
 
@@ -399,30 +419,48 @@ class _Overlap:
     write, multithread.c:70-111). The threads run file IO only: every
     backend call, and so every tensor and CUDA call, stays on the caller's
     thread. Single writer thread => writes retain submission order. Errors
-    surface at the next submit/drain."""
+    surface at the next submit/drain.
 
-    def __init__(self):
+    Each read runs in a ``shafa.io.read.<read_kind>`` span on the reader
+    thread, each write in ``shafa.io.write.<write_kind>`` on the writer;
+    the caller's waits for them are ``shafa.overlap.wait_read`` and
+    ``shafa.overlap.wait_write``."""
+
+    def __init__(self, read_kind: str, write_kind: str):
         self._rd = cf.ThreadPoolExecutor(1, "shafa-read")
         self._wr = cf.ThreadPoolExecutor(1, "shafa-write")
+        self._read_span = f"shafa.io.read.{read_kind}"
+        self._write_span = f"shafa.io.write.{write_kind}"
         self._next = None
         self._writes: list = []
 
+    @staticmethod
+    def _in_span(name, fn, *args):
+        with tracing.span(name):
+            return fn(*args)
+
     def prefetch(self, fn, *args):
-        self._next = self._rd.submit(fn, *args)
+        self._next = self._rd.submit(self._in_span, self._read_span, fn,
+                                     *args)
 
     def take(self):
         fut, self._next = self._next, None
-        return fut.result()
+        with tracing.span("shafa.overlap.wait_read"):
+            return fut.result()
 
     def write(self, fn, *args):
+        self._writes.append(self._wr.submit(self._in_span, self._write_span,
+                                            fn, *args))
         # keep at most 2 batches of output in flight (bounds RSS)
-        self._writes.append(self._wr.submit(fn, *args))
-        while len(self._writes) > 2:
-            self._writes.pop(0).result()
+        if len(self._writes) > 2:
+            with tracing.span("shafa.overlap.wait_write"):
+                while len(self._writes) > 2:
+                    self._writes.pop(0).result()
 
     def drain(self):
-        for w in self._writes:
-            w.result()
+        with tracing.span("shafa.overlap.wait_write"):
+            for w in self._writes:
+                w.result()
         self._writes.clear()
 
     def close(self):
@@ -436,6 +474,7 @@ def _read_block_range(fp, geo, lo: int, hi: int) -> list[np.ndarray]:
     sizes = geo.sizes()
     fp.seek(geo.offset(lo))
     buf = fp.read(sum(sizes[lo:hi]))
+    tracing.count("file_read_bytes", len(buf))
     out, pos = [], 0
     for s in sizes[lo:hi]:
         if pos + s > len(buf):
@@ -488,106 +527,111 @@ def compress_pipeline_streaming(path: str, force_rle: bool, force_freq: bool,
     (tests/test_torch_streaming.py).
     """
     t0 = time.perf_counter()
-    if not os.path.isfile(path):
-        raise FileInaccessibleError(path)
-    geo = geometry.geometry_for_file(path, block_size)
-    if geo.total < geometry.MIN_FILE_SIZE:
-        raise FileTooSmallError(path)
-    sizes = geo.sizes()
+    with tracing.span("shafa.pipeline.f"):
+        if not os.path.isfile(path):
+            raise FileInaccessibleError(path)
+        geo = geometry.geometry_for_file(path, block_size)
+        if geo.total < geometry.MIN_FILE_SIZE:
+            raise FileTooSmallError(path)
+        sizes = geo.sizes()
 
-    # --- pass F ------------------------------------------------------------
-    rle_sizes: list[int] = []
-    rle_hists: list[np.ndarray] = []
-    raw_hists: list[np.ndarray] = []
-    compress_rle: bool | None = None
-    generated: list[str] = []
-    path_rle = formats.add_ext(path, formats.RLE_EXT)
-    prog = _Progress(path_rle + ".progress", _input_key(path, block_size))
-    start_bi = 0
-    resume_at = None
-    st = prog.load()
-    if st is not None and (not bool(st["compress_rle"])
-                          or os.path.isfile(path_rle + ".shafa_tmp")):
-        start_bi = int(st["done_batches"])
-        compress_rle = bool(st["compress_rle"])
-        resume_at = int(st["rle_written"])
-        if compress_rle:
-            rle_sizes = [int(s) for s in st["rle_sizes"]]
-            rle_hists = [st["rle_hists"]]
-        if st["raw_hists"].size:
-            raw_hists = [st["raw_hists"]]
-    rle_tmp = _AtomicFile(path_rle, keep_on_error=prog.enabled,
-                          resume_at=resume_at)
-    rle_fp = None
-    if resume_at is not None and compress_rle:
-        rle_fp = rle_tmp.__enter__()
-    batches = list(_stream_batches(geo, block_size))
-    ov = _Overlap()  # read batch k+1 / write batch k-1 while k computes
-    try:
-        with open(path, "rb") as fp:
-            if start_bi < len(batches):
-                ov.prefetch(_read_block_range, fp, geo, *batches[start_bi])
-            for bi in range(start_bi, len(batches)):
-                blocks = ov.take()
-                if bi + 1 < len(batches):
-                    ov.prefetch(_read_block_range, fp, geo, *batches[bi + 1])
-                h = backend.fused_encode(blocks)
-                batch_sizes = backend.fused_rle_sizes(h)
-                if compress_rle is None:  # gate from block 0 (f.c:250-257)
-                    ratio = (sizes[0] - int(batch_sizes[0])) / sizes[0]
-                    compress_rle = force_rle or ratio >= RLE_GATE_RATIO
+        # --- pass F --------------------------------------------------------
+        rle_sizes: list[int] = []
+        rle_hists: list[np.ndarray] = []
+        raw_hists: list[np.ndarray] = []
+        compress_rle: bool | None = None
+        generated: list[str] = []
+        path_rle = formats.add_ext(path, formats.RLE_EXT)
+        prog = _Progress(path_rle + ".progress", _input_key(path, block_size))
+        start_bi = 0
+        resume_at = None
+        st = prog.load()
+        if st is not None and (not bool(st["compress_rle"])
+                              or os.path.isfile(path_rle + ".shafa_tmp")):
+            start_bi = int(st["done_batches"])
+            compress_rle = bool(st["compress_rle"])
+            resume_at = int(st["rle_written"])
+            if compress_rle:
+                rle_sizes = [int(s) for s in st["rle_sizes"]]
+                rle_hists = [st["rle_hists"]]
+            if st["raw_hists"].size:
+                raw_hists = [st["raw_hists"]]
+        rle_tmp = _AtomicFile(path_rle, keep_on_error=prog.enabled,
+                              resume_at=resume_at)
+        rle_fp = None
+        if resume_at is not None and compress_rle:
+            rle_fp = rle_tmp.__enter__()
+        batches = list(_stream_batches(geo, block_size))
+        # read batch k+1 / write batch k-1 while k computes
+        ov = _Overlap("input", "rle")
+        try:
+            with open(path, "rb") as fp:
+                if start_bi < len(batches):
+                    ov.prefetch(_read_block_range, fp, geo, *batches[start_bi])
+                for bi in range(start_bi, len(batches)):
+                    blocks = ov.take()
+                    if bi + 1 < len(batches):
+                        ov.prefetch(_read_block_range, fp, geo,
+                                    *batches[bi + 1])
+                    h = backend.fused_encode(blocks)
+                    batch_sizes = backend.fused_rle_sizes(h)
+                    if compress_rle is None:  # gate from block 0 (f.c:250-257)
+                        ratio = (sizes[0] - int(batch_sizes[0])) / sizes[0]
+                        compress_rle = force_rle or ratio >= RLE_GATE_RATIO
+                        if compress_rle:
+                            rle_fp = rle_tmp.__enter__()
                     if compress_rle:
-                        rle_fp = rle_tmp.__enter__()
-                if compress_rle:
-                    rle_sizes.extend(int(s) for s in batch_sizes)
-                    rle_hists.append(backend.fused_rle_hists(h))
-                    ov.write(rle_fp.write,
-                             backend.fused_rle_bytes(h).tobytes())
-                if force_freq or not compress_rle:
-                    raw_hists.append(backend.fused_raw_hists(h))
-                del h  # free the batch's device tensors
-                if prog.enabled:
-                    ov.drain()  # writes durable before recording progress
-                    prog.save(
-                        done_batches=bi + 1,
-                        compress_rle=bool(compress_rle),
-                        rle_written=rle_fp.tell() if rle_fp else 0,
-                        rle_sizes=np.asarray(rle_sizes, np.int64),
-                        rle_hists=(np.concatenate(rle_hists) if rle_hists
-                                   else np.zeros((0, 256), np.int64)),
-                        raw_hists=(np.concatenate(raw_hists) if raw_hists
-                                   else np.zeros((0, 256), np.int64)))
-                    if rle_hists:
-                        rle_hists = [np.concatenate(rle_hists)]
-                    if raw_hists:
-                        raw_hists = [np.concatenate(raw_hists)]
-            ov.drain()
-    except BaseException:
+                        rle_sizes.extend(int(s) for s in batch_sizes)
+                        rle_hists.append(backend.fused_rle_hists(h))
+                        ov.write(rle_fp.write,
+                                 backend.fused_rle_bytes(h).tobytes())
+                    if force_freq or not compress_rle:
+                        raw_hists.append(backend.fused_raw_hists(h))
+                    del h  # free the batch's device tensors
+                    if prog.enabled:
+                        ov.drain()  # writes durable before recording progress
+                        prog.save(
+                            done_batches=bi + 1,
+                            compress_rle=bool(compress_rle),
+                            rle_written=rle_fp.tell() if rle_fp else 0,
+                            rle_sizes=np.asarray(rle_sizes, np.int64),
+                            rle_hists=(np.concatenate(rle_hists) if rle_hists
+                                       else np.zeros((0, 256), np.int64)),
+                            raw_hists=(np.concatenate(raw_hists) if raw_hists
+                                       else np.zeros((0, 256), np.int64)))
+                        if rle_hists:
+                            rle_hists = [np.concatenate(rle_hists)]
+                        if raw_hists:
+                            raw_hists = [np.concatenate(raw_hists)]
+                ov.drain()
+        except BaseException:
+            if rle_fp is not None:
+                rle_tmp.__exit__(RuntimeError, None, None)
+            raise
+        finally:
+            ov.close()
         if rle_fp is not None:
-            rle_tmp.__exit__(RuntimeError, None, None)
-        raise
-    finally:
-        ov.close()
-    if rle_fp is not None:
-        rle_tmp.__exit__(None, None, None)
-    prog.clear()
+            rle_tmp.__exit__(None, None, None)
+        prog.clear()
 
-    if compress_rle:
-        freqs = np.concatenate(rle_hists)
-        path_rle_freq = formats.add_ext(path_rle, formats.FREQ_EXT)
-        with _AtomicFile(path_rle_freq) as fp:
-            formats.write_freq_arrays(fp, "R", rle_sizes, freqs)
-        generated += [path_rle, path_rle_freq]
-        mode, stream_sizes = "R", rle_sizes
-    if force_freq or not compress_rle:
-        nfreqs = np.concatenate(raw_hists)
-        path_freq = formats.add_ext(path, formats.FREQ_EXT)
-        with _AtomicFile(path_freq) as fp:
-            formats.write_freq_arrays(fp, "N", sizes, nfreqs)
-        generated.append(path_freq)
-        if not compress_rle:
-            mode, stream_sizes, freqs = "N", list(sizes), nfreqs
-    data_path = path_rle if compress_rle else path
+        if compress_rle:
+            freqs = np.concatenate(rle_hists)
+            path_rle_freq = formats.add_ext(path_rle, formats.FREQ_EXT)
+            with tracing.span("shafa.io.write.freq"), \
+                    _AtomicFile(path_rle_freq) as fp:
+                formats.write_freq_arrays(fp, "R", rle_sizes, freqs)
+            generated += [path_rle, path_rle_freq]
+            mode, stream_sizes = "R", rle_sizes
+        if force_freq or not compress_rle:
+            nfreqs = np.concatenate(raw_hists)
+            path_freq = formats.add_ext(path, formats.FREQ_EXT)
+            with tracing.span("shafa.io.write.freq"), \
+                    _AtomicFile(path_freq) as fp:
+                formats.write_freq_arrays(fp, "N", sizes, nfreqs)
+            generated.append(path_freq)
+            if not compress_rle:
+                mode, stream_sizes, freqs = "N", list(sizes), nfreqs
+        data_path = path_rle if compress_rle else path
     rep_f = StageReport(
         module="f", n_blocks=geo.n_blocks, sizes_before=sizes,
         sizes_after=stream_sizes,
@@ -598,10 +642,12 @@ def compress_pipeline_streaming(path: str, force_rle: bool, force_freq: bool,
     # --- module T ------------------------------------------------------------
     t1 = time.perf_counter()
     try:
-        tables = codes_mod.build_code_tables(freqs)
-        path_cod = formats.add_ext(data_path, formats.CODES_EXT)
-        with _AtomicFile(path_cod) as fp:
-            formats.write_cod_tables(fp, mode, stream_sizes, tables)
+        with tracing.span("shafa.pipeline.t"):
+            tables = codes_mod.build_code_tables(freqs)
+            path_cod = formats.add_ext(data_path, formats.CODES_EXT)
+            with tracing.span("shafa.io.write.cod"), \
+                    _AtomicFile(path_cod) as fp:
+                formats.write_cod_tables(fp, mode, stream_sizes, tables)
     except ShafaError as e:
         e.stage = "t"
         raise
@@ -614,61 +660,63 @@ def compress_pipeline_streaming(path: str, force_rle: bool, force_freq: bool,
     t2 = time.perf_counter()
     payload_sizes: list[int] = []
     try:
-        path_shafa = formats.add_ext(data_path, formats.SHAFA_EXT)
-        offs = np.concatenate(([0], np.cumsum(stream_sizes)))
+        with tracing.span("shafa.pipeline.c"):
+            path_shafa = formats.add_ext(data_path, formats.SHAFA_EXT)
+            offs = np.concatenate(([0], np.cumsum(stream_sizes)))
 
-        def read_streams(fp, lo, hi):
-            fp.seek(offs[lo])
-            buf = fp.read(int(offs[hi] - offs[lo]))
-            blocks, pos = [], 0
-            for s in stream_sizes[lo:hi]:
-                blocks.append(np.frombuffer(buf, np.uint8, count=s,
-                                            offset=pos))
-                pos += s
-            return blocks
+            def read_streams(fp, lo, hi):
+                fp.seek(offs[lo])
+                buf = fp.read(int(offs[hi] - offs[lo]))
+                tracing.count("file_read_bytes", len(buf))
+                blocks, pos = [], 0
+                for s in stream_sizes[lo:hi]:
+                    blocks.append(np.frombuffer(buf, np.uint8, count=s,
+                                                offset=pos))
+                    pos += s
+                return blocks
 
-        def write_payloads(out_fp, payloads):
-            for p in payloads:
-                formats.write_shaf_block(out_fp, p)
+            def write_payloads(out_fp, payloads):
+                for p in payloads:
+                    formats.write_shaf_block(out_fp, p)
 
-        progc = _Progress(path_shafa + ".progress",
-                          _input_key(path, block_size))
-        startc = 0
-        resume_c = None
-        stc = progc.load()
-        if stc is not None and os.path.isfile(path_shafa + ".shafa_tmp"):
-            startc = int(stc["done_batches"])
-            payload_sizes.extend(int(s) for s in stc["payload_sizes"])
-            resume_c = int(stc["written"])
-        ov = _Overlap()
-        try:
-            with _AtomicFile(path_shafa, keep_on_error=progc.enabled,
-                             resume_at=resume_c) as out_fp, \
-                    open(data_path, "rb") as fp:
-                if resume_c is None:
-                    formats.write_shaf_header(out_fp, geo.n_blocks)
-                if startc < len(batches):
-                    ov.prefetch(read_streams, fp, *batches[startc])
-                for bi in range(startc, len(batches)):
-                    lo, hi = batches[bi]
-                    blocks = ov.take()
-                    if bi + 1 < len(batches):
-                        ov.prefetch(read_streams, fp, *batches[bi + 1])
-                    payloads = backend.pack(blocks, _sub_tables(tables, lo,
-                                                                hi),
-                                            freqs[lo:hi])
-                    payload_sizes.extend(len(p) for p in payloads)
-                    ov.write(write_payloads, out_fp, payloads)
-                    if progc.enabled:
-                        ov.drain()
-                        progc.save(done_batches=bi + 1,
-                                   written=out_fp.tell(),
-                                   payload_sizes=np.asarray(payload_sizes,
-                                                            np.int64))
-                ov.drain()
-        finally:
-            ov.close()
-        progc.clear()
+            progc = _Progress(path_shafa + ".progress",
+                              _input_key(path, block_size))
+            startc = 0
+            resume_c = None
+            stc = progc.load()
+            if stc is not None and os.path.isfile(path_shafa + ".shafa_tmp"):
+                startc = int(stc["done_batches"])
+                payload_sizes.extend(int(s) for s in stc["payload_sizes"])
+                resume_c = int(stc["written"])
+            ov = _Overlap(_data_kind(data_path), "shaf")
+            try:
+                with _AtomicFile(path_shafa, keep_on_error=progc.enabled,
+                                 resume_at=resume_c) as out_fp, \
+                        open(data_path, "rb") as fp:
+                    if resume_c is None:
+                        formats.write_shaf_header(out_fp, geo.n_blocks)
+                    if startc < len(batches):
+                        ov.prefetch(read_streams, fp, *batches[startc])
+                    for bi in range(startc, len(batches)):
+                        lo, hi = batches[bi]
+                        blocks = ov.take()
+                        if bi + 1 < len(batches):
+                            ov.prefetch(read_streams, fp, *batches[bi + 1])
+                        payloads = backend.pack(blocks, _sub_tables(tables, lo,
+                                                                    hi),
+                                                freqs[lo:hi])
+                        payload_sizes.extend(len(p) for p in payloads)
+                        ov.write(write_payloads, out_fp, payloads)
+                        if progc.enabled:
+                            ov.drain()
+                            progc.save(done_batches=bi + 1,
+                                       written=out_fp.tell(),
+                                       payload_sizes=np.asarray(payload_sizes,
+                                                                np.int64))
+                    ov.drain()
+            finally:
+                ov.close()
+            progc.clear()
     except ShafaError as e:
         e.stage = "c"
         raise
@@ -717,43 +765,47 @@ def compress_pipeline(path: str, force_rle: bool, force_freq: bool,
                                            block_size, backend)
 
     t0 = time.perf_counter()
-    if not os.path.isfile(path):
-        raise FileInaccessibleError(path)
-    geo = geometry.geometry_for_file(path, block_size)
-    if geo.total < geometry.MIN_FILE_SIZE:
-        raise FileTooSmallError(path)
-    sizes = geo.sizes()
-    blocks = _read_blocks(path, sizes)
+    with tracing.span("shafa.pipeline.f"):
+        if not os.path.isfile(path):
+            raise FileInaccessibleError(path)
+        geo = geometry.geometry_for_file(path, block_size)
+        if geo.total < geometry.MIN_FILE_SIZE:
+            raise FileTooSmallError(path)
+        sizes = geo.sizes()
+        blocks = _read_blocks(path, sizes, "input")
 
-    handle = backend.fused_encode(blocks)
-    rle_sizes = backend.fused_rle_sizes(handle)
-    ratio = (sizes[0] - int(rle_sizes[0])) / sizes[0]
-    compress_rle = force_rle or ratio >= RLE_GATE_RATIO
+        handle = backend.fused_encode(blocks)
+        rle_sizes = backend.fused_rle_sizes(handle)
+        ratio = (sizes[0] - int(rle_sizes[0])) / sizes[0]
+        compress_rle = force_rle or ratio >= RLE_GATE_RATIO
 
-    generated: list[str] = []
-    path_rle = formats.add_ext(path, formats.RLE_EXT)
-    rle_flat = None
-    rle_offs = None
-    if compress_rle:
-        rle_flat = backend.fused_rle_bytes(handle)
-        rle_offs = np.concatenate(([0], np.cumsum(rle_sizes)))
-        with _AtomicFile(path_rle) as fp:
-            fp.write(rle_flat.tobytes())
-        freqs = backend.fused_rle_hists(handle)
-        path_rle_freq = formats.add_ext(path_rle, formats.FREQ_EXT)
-        with _AtomicFile(path_rle_freq) as fp:
-            formats.write_freq_arrays(fp, "R", rle_sizes, freqs)
-        generated += [path_rle, path_rle_freq]
-        mode, stream_sizes = "R", [int(s) for s in rle_sizes]
-    if force_freq or not compress_rle:
-        nfreqs = backend.fused_raw_hists(handle)
-        path_freq = formats.add_ext(path, formats.FREQ_EXT)
-        with _AtomicFile(path_freq) as fp:
-            formats.write_freq_arrays(fp, "N", sizes, nfreqs)
-        generated.append(path_freq)
-        if not compress_rle:
-            mode, stream_sizes, freqs = "N", list(sizes), nfreqs
-    data_path = path_rle if compress_rle else path
+        generated: list[str] = []
+        path_rle = formats.add_ext(path, formats.RLE_EXT)
+        rle_flat = None
+        rle_offs = None
+        if compress_rle:
+            rle_flat = backend.fused_rle_bytes(handle)
+            rle_offs = np.concatenate(([0], np.cumsum(rle_sizes)))
+            with tracing.span("shafa.io.write.rle"), \
+                    _AtomicFile(path_rle) as fp:
+                fp.write(rle_flat.tobytes())
+            freqs = backend.fused_rle_hists(handle)
+            path_rle_freq = formats.add_ext(path_rle, formats.FREQ_EXT)
+            with tracing.span("shafa.io.write.freq"), \
+                    _AtomicFile(path_rle_freq) as fp:
+                formats.write_freq_arrays(fp, "R", rle_sizes, freqs)
+            generated += [path_rle, path_rle_freq]
+            mode, stream_sizes = "R", [int(s) for s in rle_sizes]
+        if force_freq or not compress_rle:
+            nfreqs = backend.fused_raw_hists(handle)
+            path_freq = formats.add_ext(path, formats.FREQ_EXT)
+            with tracing.span("shafa.io.write.freq"), \
+                    _AtomicFile(path_freq) as fp:
+                formats.write_freq_arrays(fp, "N", sizes, nfreqs)
+            generated.append(path_freq)
+            if not compress_rle:
+                mode, stream_sizes, freqs = "N", list(sizes), nfreqs
+        data_path = path_rle if compress_rle else path
     rep_f = StageReport(
         module="f", n_blocks=geo.n_blocks, sizes_before=sizes,
         sizes_after=stream_sizes,
@@ -762,10 +814,12 @@ def compress_pipeline(path: str, force_rle: bool, force_freq: bool,
 
     t1 = time.perf_counter()
     try:
-        tables = codes_mod.build_code_tables(freqs)
-        path_cod = formats.add_ext(data_path, formats.CODES_EXT)
-        with _AtomicFile(path_cod) as fp:
-            formats.write_cod_tables(fp, mode, stream_sizes, tables)
+        with tracing.span("shafa.pipeline.t"):
+            tables = codes_mod.build_code_tables(freqs)
+            path_cod = formats.add_ext(data_path, formats.CODES_EXT)
+            with tracing.span("shafa.io.write.cod"), \
+                    _AtomicFile(path_cod) as fp:
+                formats.write_cod_tables(fp, mode, stream_sizes, tables)
     except ShafaError as e:
         e.stage = "t"
         raise
@@ -782,12 +836,15 @@ def compress_pipeline(path: str, force_rle: bool, force_freq: bool,
         return blocks[i]
 
     try:
-        payloads = backend.fused_pack(handle, tables, compress_rle, host_row)
-        path_shafa = formats.add_ext(data_path, formats.SHAFA_EXT)
-        with _AtomicFile(path_shafa) as fp:
-            formats.write_shaf_header(fp, geo.n_blocks)
-            for p in payloads:
-                formats.write_shaf_block(fp, p)
+        with tracing.span("shafa.pipeline.c"):
+            payloads = backend.fused_pack(handle, tables, compress_rle,
+                                          host_row)
+            path_shafa = formats.add_ext(data_path, formats.SHAFA_EXT)
+            with tracing.span("shafa.io.write.shaf"), \
+                    _AtomicFile(path_shafa) as fp:
+                formats.write_shaf_header(fp, geo.n_blocks)
+                for p in payloads:
+                    formats.write_shaf_block(fp, p)
     except ShafaError as e:
         e.stage = "c"
         raise
@@ -802,13 +859,14 @@ def compress_pipeline(path: str, force_rle: bool, force_freq: bool,
 # Module T: Shannon-Fano code construction (t.c:246-445)
 # ---------------------------------------------------------------------------
 
+@tracing.spanned("shafa.pipeline.t")
 def module_t(path: str) -> tuple[str, StageReport]:
     t0 = time.perf_counter()
     mode, block_sizes, freqs = formats.parse_freq_arrays(
-        _open_read(formats.add_ext(path, formats.FREQ_EXT)))
+        _open_read(formats.add_ext(path, formats.FREQ_EXT), "freq"))
     tables = codes_mod.build_code_tables(freqs)
     path_cod = formats.add_ext(path, formats.CODES_EXT)
-    with _AtomicFile(path_cod) as fp:
+    with tracing.span("shafa.io.write.cod"), _AtomicFile(path_cod) as fp:
         formats.write_cod_tables(fp, mode, block_sizes, tables)
     report = StageReport(
         module="t", n_blocks=len(block_sizes), sizes_before=block_sizes,
@@ -823,16 +881,18 @@ def module_t(path: str) -> tuple[str, StageReport]:
 # Module C: bit-pack encode (c.c:306-472)
 # ---------------------------------------------------------------------------
 
+@tracing.spanned("shafa.pipeline.c")
 def module_c(path: str, backend: Backend) -> tuple[str, StageReport]:
     t0 = time.perf_counter()
     _, block_sizes, tables = formats.parse_cod_tables(
-        _open_read(formats.add_ext(path, formats.CODES_EXT)))
+        _open_read(formats.add_ext(path, formats.CODES_EXT), "cod"))
     if not os.path.isfile(path):
         raise FileInaccessibleError(path)
-    blocks = _read_blocks(path, block_sizes)
+    blocks = _read_blocks(path, block_sizes, _data_kind(path))
     payloads = backend.pack(blocks, tables)
     path_shafa = formats.add_ext(path, formats.SHAFA_EXT)
-    with _AtomicFile(path_shafa) as fp:
+    with tracing.span("shafa.io.write.shaf"), \
+            _AtomicFile(path_shafa) as fp:
         formats.write_shaf_header(fp, len(block_sizes))
         for p in payloads:
             formats.write_shaf_block(fp, p)
@@ -849,13 +909,14 @@ def module_c(path: str, backend: Backend) -> tuple[str, StageReport]:
 # Module D: decode (d.c:628-834) and RLE-only decode (d.c:232-388)
 # ---------------------------------------------------------------------------
 
+@tracing.spanned("shafa.pipeline.d")
 def module_d_shafa(path: str, rle_decompression: bool,
                    backend: Backend) -> tuple[str, StageReport]:
     t0 = time.perf_counter()
     path_tmp = formats.rm_ext(path)  # strip .shaf
     path_wrt = formats.rm_ext(path_tmp) if rle_decompression else path_tmp
     mode, block_sizes, tables = formats.parse_cod_tables(
-        _open_read(formats.add_ext(path_tmp, formats.CODES_EXT)))
+        _open_read(formats.add_ext(path_tmp, formats.CODES_EXT), "cod"))
     # Mode legality (d.c:678): N forbids the RLE path; R allows both.
     if not ((mode == "N" and not rle_decompression) or mode == "R"):
         raise FileUnrecognizableError(".cod mode vs decompression type")
@@ -864,7 +925,7 @@ def module_d_shafa(path: str, rle_decompression: bool,
         return _module_d_shafa_streaming(path, path_wrt, block_sizes,
                                          tables, rle_decompression,
                                          backend, t0)
-    payloads = formats.parse_shaf_frames(_open_read(path))
+    payloads = formats.parse_shaf_frames(_open_read(path, "shaf"))
     if len(payloads) != len(block_sizes):
         raise FileUnrecognizableError("block count mismatch .shaf vs .cod")
     if getattr(backend, "supports_fused", False):
@@ -876,7 +937,8 @@ def module_d_shafa(path: str, rle_decompression: bool,
             out_blocks = backend.rle_expand(decoded)
         else:
             out_blocks = decoded
-    with _AtomicFile(path_wrt) as fp:
+    with tracing.span("shafa.io.write.restored"), \
+            _AtomicFile(path_wrt) as fp:
         for b in out_blocks:
             fp.write(b.tobytes())
     report = StageReport(
@@ -909,16 +971,19 @@ def _module_d_shafa_streaming(path, path_wrt, block_sizes, tables,
 
     def read_frames(frames, n):
         payloads = []
+        start = in_fp.tell()
         for _ in range(n):
             try:
                 payloads.append(next(frames))
             except StopIteration:
                 raise FileUnrecognizableError(
                     "block count mismatch .shaf vs .cod") from None
+        tracing.count("file_read_bytes", in_fp.tell() - start)
         return payloads
 
     try:
-        ov = _Overlap()  # frame read-ahead / output write-behind
+        # frame read-ahead / output write-behind
+        ov = _Overlap("shaf", "restored")
         try:
             with open(path, "rb") as in_fp:
                 frames = formats.iter_shaf_frames_file(in_fp)
@@ -963,17 +1028,21 @@ def _module_d_shafa_streaming(path, path_wrt, block_sizes, tables,
     return path_wrt, report
 
 
+@tracing.spanned("shafa.pipeline.d")
 def module_d_rle(path: str, backend: Backend) -> tuple[str, StageReport]:
     t0 = time.perf_counter()
-    freq = formats.parse_freq(_open_read(formats.add_ext(path, formats.FREQ_EXT)))
+    freq = formats.parse_freq(_open_read(formats.add_ext(path,
+                                                         formats.FREQ_EXT),
+                                         "freq"))
     if freq.mode != "R":
         raise FileUnrecognizableError(".freq mode must be R for RLE decode")
     path_wrt = formats.rm_ext(path)
     if _over_stream_threshold(path):
         return _module_d_rle_streaming(path, path_wrt, freq, backend, t0)
-    blocks = _read_blocks(path, freq.block_sizes)
+    blocks = _read_blocks(path, freq.block_sizes, "rle")
     out_blocks = backend.rle_expand(blocks)
-    with _AtomicFile(path_wrt) as fp:
+    with tracing.span("shafa.io.write.restored"), \
+            _AtomicFile(path_wrt) as fp:
         for b in out_blocks:
             fp.write(b.tobytes())
     report = StageReport(
@@ -1003,6 +1072,7 @@ def _module_d_rle_streaming(path, path_wrt, freq, backend, t0
     def read_batch(fp, lo, hi):
         fp.seek(offs[lo])
         buf = fp.read(offs[hi] - offs[lo])
+        tracing.count("file_read_bytes", len(buf))
         if len(buf) < offs[hi] - offs[lo]:
             raise FileUnrecognizableError("truncated .rle")
         out, pos = [], 0
@@ -1012,7 +1082,7 @@ def _module_d_rle_streaming(path, path_wrt, freq, backend, t0
         return out
 
     try:
-        ov = _Overlap()
+        ov = _Overlap("rle", "restored")
         try:
             with open(path, "rb") as in_fp, _AtomicFile(path_wrt) as out_fp:
                 done = 0

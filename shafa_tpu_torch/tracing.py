@@ -1,0 +1,97 @@
+"""The port's own spans and counters.
+
+Spans. ``span(name)`` is ``torch.profiler.record_function(name)`` while a
+torch profiler records, and one shared no-op context otherwise, so the
+spans land in the profiler's trace beside the card's kernels and copies,
+on the trace's clock, and cost next to nothing when no profiler runs (a
+dict lookup and an attribute read; ``record_function`` itself costs about
+20 times that even with no profiler). A span never synchronises and never
+allocates on the card. The names are ``shafa.<layer>.<step>``:
+
+  * ``shafa.cli.main``, ``shafa.cli.make_backend``;
+  * ``shafa.pipeline.f`` / ``.t`` / ``.c`` / ``.d``: the intervals that
+    each module's ``runtime_ms`` covers;
+  * ``shafa.io.read.<kind>`` / ``shafa.io.write.<kind>`` (kind: input,
+    freq, cod, shaf, rle, restored): one file's open, reads or writes,
+    close and rename;
+  * ``shafa.overlap.wait_read`` / ``.wait_write``: the streaming drivers'
+    waits on their read-ahead and write-behind threads;
+  * ``shafa.codes.build``;
+  * ``shafa.backend.stack``, ``.h2d``, ``.d2h`` (the host's wait for the
+    card and the copy), ``.encode_batch``, ``.pack_batch``,
+    ``.decode_batch``;
+  * ``shafa.dist.worker.<k>``: one call on a worker thread of
+    ``dist.ShardedBackend``.
+
+torch.profiler records only the thread that started it, unless it was
+started with ``profile_all_threads``, as ``--profile`` starts it: the
+spans of worker threads are then in the trace too.
+
+Counters. ``count(name, n)`` adds n to a counter under a lock, always on.
+``cli.main`` calls ``reset()`` at its start, so ``counters()`` gives the
+last call's (``--json`` reports them under ``"counters"``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import sys
+import threading
+
+#: The counters that ``reset`` sets to 0.
+COUNTERS = (
+    "h2d_bytes", "h2d_pageable_bytes", "h2d_copies",
+    "d2h_bytes", "d2h_pageable_bytes", "d2h_copies",
+    "encode_batches", "pack_batches", "decode_batches",
+    "file_read_bytes", "file_written_bytes",
+    "host_decoded_blocks",
+)
+
+_NOOP = contextlib.nullcontext()
+_lock = threading.Lock()
+_counts = dict.fromkeys(COUNTERS, 0)
+
+
+def recording() -> bool:
+    """True while a torch profiler records (set on every thread at its
+    start; False where torch was never imported)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+def span(name: str):
+    """A ``record_function(name)`` range while a profiler records, else a
+    shared no-op context."""
+    if recording():
+        from torch.profiler import record_function
+        return record_function(name)
+    return _NOOP
+
+
+def spanned(name: str):
+    """Decorator: every call of the function in ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    with _lock:
+        _counts[name] = _counts.get(name, 0) + int(n)
+
+
+def reset() -> None:
+    with _lock:
+        _counts.clear()
+        _counts.update(dict.fromkeys(COUNTERS, 0))
+
+
+def counters() -> dict[str, int]:
+    """The counters since the last ``reset``."""
+    with _lock:
+        return dict(_counts)

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 from shafa_tpu import codes as codes_mod, oracle
 from shafa_tpu.kernels import decode as jdec
 from shafa_tpu.kernels import dispatch
+from shafa_tpu_torch import tracing
 from shafa_tpu_torch.device import TorchBackend, tables_to_device
 from shafa_tpu_torch.device import _bucket, _stack_blocks
 from shafa_tpu_torch.kernels import decode
@@ -280,8 +281,8 @@ def test_decode_state_widths_match_oracle(kind):
 def test_backend_routes_17_to_32_bit_blocks_to_the_counted_host_decode(
         monkeypatch):
     """17-32-bit blocks take the K5 -> K6 -> K1 route beside a <=16-bit
-    block, and host_decoded_blocks, which counts only the rows the backend
-    sends to the host by design, does not move."""
+    block, and the counter host_decoded_blocks, which counts only the rows
+    the backend sends to the host by design, stays 0."""
     rng = np.random.default_rng(55)
     a = rng.integers(0, 256, 4000, dtype=np.uint8)
     wide = _canonical(list(range(1, 20)) + [20, 20])
@@ -298,10 +299,10 @@ def test_backend_routes_17_to_32_bit_blocks_to_the_counted_host_decode(
         calls.append(args[0].shape)
         return real(*args, **kwargs)
     monkeypatch.setattr(decode, "decode_batch32", counted)
-    before = TorchBackend.host_decoded_blocks
+    tracing.reset()
     out = TorchBackend("cpu").fused_decode(payloads, tables, [a.size, b.size],
                                            expand=False)
-    assert TorchBackend.host_decoded_blocks == before
+    assert tracing.counters()["host_decoded_blocks"] == 0
     assert len(calls) == 1 and calls[0][0] == 1  # the 17-32-bit row alone
     np.testing.assert_array_equal(out[0], a)
     np.testing.assert_array_equal(out[1], b)

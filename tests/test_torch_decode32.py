@@ -12,6 +12,7 @@ import jax.numpy as jnp
 
 from shafa_tpu import codes as codes_mod, oracle
 from shafa_tpu.kernels import decode as jdec
+from shafa_tpu_torch import tracing
 from shafa_tpu_torch.device import TorchBackend, _bucket, _stack_blocks
 from shafa_tpu_torch.kernels import decode
 from shafa_tpu_torch.profile_main_path import text_with_rare_bytes
@@ -338,10 +339,10 @@ def test_backend_mixed_batch_matches_oracle(expand):
     assert all((tables.lens[i][r] > 0).all() for i, r in enumerate(rows))
     payloads = [oracle.pack(r, tables.lens[i], tables.vals[i])
                 for i, r in enumerate(rows)]
-    before = TorchBackend.host_decoded_blocks
+    tracing.reset()
     out = TorchBackend("cpu").fused_decode(
         payloads, tables, [r.size for r in rows], expand=expand)
-    assert TorchBackend.host_decoded_blocks == before + 2
+    assert tracing.counters()["host_decoded_blocks"] == 2
     for i, r in enumerate(rows):
         dec = oracle.unpack(payloads[i], tables.row_strings(i), r.size)
         want = oracle.rle_expand(dec) if expand else dec

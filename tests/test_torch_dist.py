@@ -13,7 +13,8 @@ import pytest
 
 import __graft_entry__ as graft
 from shafa_tpu import pipeline as jpipeline
-from shafa_tpu_torch import cli, codes, device, dist, dryrun, pipeline
+from shafa_tpu_torch import (cli, codes, device, dist, dryrun, pipeline,
+                             tracing)
 from shafa_tpu_torch.device import TorchBackend
 from shafa_tpu_torch.profile_main_path import synthetic
 
@@ -93,8 +94,8 @@ def test_fused_tier_matches_one_device(tmp_path, monkeypatch, sharded, name):
 
 def test_host_decoded_count_under_many_workers(monkeypatch):
     """Sixteen workers (more than this box's cores) decode blocks that go to
-    the host by design (no codes at all) at once: no bump of
-    TorchBackend.host_decoded_blocks is lost."""
+    the host by design (no codes at all) at once: no bump of the counter
+    host_decoded_blocks is lost."""
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     backend = dist.ShardedBackend(["cpu"] * 16)
@@ -102,11 +103,11 @@ def test_host_decoded_count_under_many_workers(monkeypatch):
         n = 16 * 40
         tables = codes.CodeTables(np.zeros((n, 256), np.uint8),
                                   np.zeros((n, 256), np.uint64))
-        before = TorchBackend.host_decoded_blocks
+        tracing.reset()
         for _ in range(3):
             out = backend.fused_decode([b""] * n, tables, [0] * n, False)
             assert len(out) == n and all(o.size == 0 for o in out)
-        assert TorchBackend.host_decoded_blocks == before + 3 * n
+        assert tracing.counters()["host_decoded_blocks"] == 3 * n
     finally:
         backend.close()
         sys.setswitchinterval(old)
@@ -203,6 +204,7 @@ def test_profile_writes_a_trace_and_leaves_the_bytes(tmp_path, monkeypatch,
     with open(trace_dir / traces[0]) as fp:
         names = {ev.get("name", "") for ev in json.load(fp)["traceEvents"]}
     assert any(n.startswith("aten::") for n in names)
+    assert "shafa.cli.main" in names  # the port's own spans (tracing.py)
     capsys.readouterr()
 
 

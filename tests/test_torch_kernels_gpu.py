@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from shafa_tpu import codes as codes_mod, oracle
-from shafa_tpu_torch import pipeline
+from shafa_tpu_torch import pipeline, tracing
 from shafa_tpu_torch.device import (TorchBackend, _bucket, _stack_blocks,
                                     tables_to_device)
 from shafa_tpu_torch.kernels import _build, decode, emit, expand, rle
@@ -606,14 +606,14 @@ def test_backend_round_trip_17_to_32_bit_codes_on_the_card(cuda, tmp_path):
         fp.write(data)
     tb = TorchBackend(cuda)
     _build.reset_launches()
-    before = TorchBackend.host_decoded_blocks
+    tracing.reset()
     pipeline.compress_pipeline(path, False, False, 2 << 20, tb)
     os.rename(path, path + ".orig")
     pipeline.module_d_shafa(path + ".rle.shaf", True, tb)
     with open(path, "rb") as fp:
         assert fp.read() == data
     assert _build.launches["rank32"] and _build.launches["fsm32"]
-    assert TorchBackend.host_decoded_blocks == before
+    assert tracing.counters()["host_decoded_blocks"] == 0
 
 
 def test_backend_round_trip_on_the_card(cuda, tmp_path):

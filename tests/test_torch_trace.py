@@ -1,0 +1,186 @@
+"""The port's own spans and counters (shafa_tpu_torch/tracing.py) on a
+300 kB CLI round trip on the CPU (the kernels' plain versions): the spans
+in a torch.profiler trace, the counters against the files and the staged
+arrays, the no-op span without a profiler, the streaming drivers' waits.
+
+The round trip runs at 100,000-byte blocks (-b K patched), three of them,
+in one device batch of four rows (MAX_BATCH_ELEMS patched): the batch has
+one padding row, as _row_bucket gives it."""
+
+import contextlib
+import io
+import json
+import os
+
+import pytest
+import torch
+
+from shafa_tpu_torch import cli, device, geometry, pipeline, tracing
+from shafa_tpu_torch.profile_main_path import synthetic
+
+BLOCK = 100_000
+SIZE = 300_000
+SIDECARS = (".rle", ".rle.freq", ".rle.cod", ".rle.shaf")
+#: The compress's flags: -b K, the R mode forced.
+COMPRESS = ["-b", "K", "-c", "r"]
+
+#: Spans each direction of the round trip must give, at least once.
+SPANS = {
+    "compress": {
+        "shafa.cli.main", "shafa.cli.make_backend",
+        "shafa.pipeline.f", "shafa.pipeline.t", "shafa.pipeline.c",
+        "shafa.io.read.input", "shafa.io.write.rle", "shafa.io.write.freq",
+        "shafa.io.write.cod", "shafa.io.write.shaf", "shafa.codes.build",
+        "shafa.backend.stack", "shafa.backend.h2d", "shafa.backend.d2h",
+        "shafa.backend.encode_batch", "shafa.backend.pack_batch"},
+    "decompress": {
+        "shafa.cli.main", "shafa.cli.make_backend", "shafa.pipeline.d",
+        "shafa.io.read.cod", "shafa.io.read.shaf", "shafa.io.write.restored",
+        "shafa.backend.stack", "shafa.backend.h2d", "shafa.backend.d2h",
+        "shafa.backend.decode_batch"},
+}
+
+
+def _cli(argv) -> dict:
+    """cli.main(argv), which must succeed; the call's counters."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(argv) == 0
+    return tracing.counters()
+
+
+@contextlib.contextmanager
+def _small_blocks():
+    """-b K at BLOCK bytes, and device batches of four BLOCK rows."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("SHAFA_TORCH_DEVICE", "cpu")
+        mp.setitem(geometry.BLOCK_SIZE_BY_FLAG, "K", BLOCK)
+        mp.setattr(device, "MAX_BATCH_ELEMS", 4 * device._bucket(BLOCK))
+        yield
+
+
+def _user_spans(trace_path: str) -> list[dict]:
+    with open(trace_path) as fp:
+        events = json.load(fp)["traceEvents"]
+    return [e for e in events if e.get("cat") == "user_annotation"
+            and e.get("ph") == "X"]
+
+
+@pytest.fixture(scope="module")
+def round_trip(tmp_path_factory):
+    """One round trip, each direction under its own CPU profiler, then a
+    second compress of the same input with no profiler: the counters of
+    each call, the trace's spans, and the sizes of the files each wrote
+    or read."""
+    d = tmp_path_factory.mktemp("trace")
+    path = str(d / "a.bin")
+    data = synthetic(SIZE, 3)
+    with open(path, "wb") as fp:
+        fp.write(data)
+    out = {"spans": {}, "counters": {}, "json": {}}
+    cpu = [torch.profiler.ProfilerActivity.CPU]
+    with _small_blocks():
+        for direction, argv in (("compress", [path] + COMPRESS),
+                                ("decompress", [path + ".rle.shaf"])):
+            jpath = str(d / f"{direction}.json")
+            with torch.profiler.profile(activities=cpu) as prof:
+                out["counters"][direction] = _cli(argv + ["--json", jpath])
+            with open(jpath) as fp:
+                out["json"][direction] = json.load(fp)["counters"]
+            tpath = str(d / f"{direction}.trace.json")
+            prof.export_chrome_trace(tpath)
+            out["spans"][direction] = _user_spans(tpath)
+            if direction == "compress":
+                out["sidecars"] = {e: os.path.getsize(path + e)
+                                   for e in SIDECARS}
+                os.rename(path, path + ".orig")
+        with open(path, "rb") as fp:
+            assert fp.read() == data
+        out["restored"] = os.path.getsize(path)
+        os.replace(path + ".orig", path)
+        out["again"] = _cli([path] + COMPRESS)
+    return out
+
+
+def test_span_is_the_shared_noop_without_a_profiler(tmp_path, monkeypatch):
+    def entered(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+    monkeypatch.setattr(torch.profiler, "record_function", entered)
+    assert not tracing.recording()
+    assert tracing.span("shafa.cli.main") is tracing.span("x") \
+        is tracing._NOOP
+    path = str(tmp_path / "a.bin")
+    with open(path, "wb") as fp:
+        fp.write(synthetic(SIZE, 3))
+    with _small_blocks():
+        _cli([path] + COMPRESS)
+        os.remove(path)
+        _cli([path + ".rle.shaf"])
+
+
+@pytest.mark.parametrize("direction", ["compress", "decompress"])
+def test_main_path_spans_are_in_the_trace(round_trip, direction):
+    spans = round_trip["spans"][direction]
+    names = {s["name"] for s in spans}
+    assert SPANS[direction] <= names
+    (main,) = [s for s in spans if s["name"] == "shafa.cli.main"]
+    stages = [s for s in spans if s["name"].startswith("shafa.pipeline.")]
+    for s in spans:
+        assert main["ts"] <= s["ts"] and \
+            s["ts"] + s["dur"] <= main["ts"] + main["dur"], s["name"]
+        if s["name"].startswith("shafa.io."):
+            assert any(p["ts"] <= s["ts"] and s["ts"] + s["dur"]
+                       <= p["ts"] + p["dur"] for p in stages), s["name"]
+
+
+@pytest.mark.parametrize("direction", ["compress", "decompress"])
+def test_file_bytes_are_the_files_on_disk(round_trip, direction):
+    c = round_trip["json"][direction]  # as --json reports them
+    assert c == round_trip["counters"][direction]
+    side = round_trip["sidecars"]
+    if direction == "compress":
+        assert c["file_read_bytes"] == SIZE
+        assert c["file_written_bytes"] == sum(side.values())
+    else:
+        assert c["file_read_bytes"] == side[".rle.cod"] + side[".rle.shaf"]
+        assert c["file_written_bytes"] == round_trip["restored"] == SIZE
+
+
+def test_h2d_bytes_are_the_staged_arrays(round_trip):
+    """One batch: the (rows, P) blocks and their lengths; for the pack,
+    the stream lengths, K1's two (rows, 256) int32 tables and the rows'
+    word offsets. All pageable on the host."""
+    c = round_trip["counters"]["compress"]
+    p = device._bucket(BLOCK)
+    rows = device._row_bucket(SIZE // BLOCK, 4)  # batches of 4 blocks
+    assert rows == 4
+    assert c["h2d_bytes"] == rows * p + rows * 4 \
+        + rows * 4 + 2 * rows * 256 * 4 + rows * 4
+    assert c["h2d_pageable_bytes"] == c["h2d_bytes"]
+    assert c["d2h_pageable_bytes"] == c["d2h_bytes"] > 0
+    assert c["encode_batches"] == c["pack_batches"] == 1
+    assert c["decode_batches"] == c["host_decoded_blocks"] == 0
+    assert round_trip["counters"]["decompress"]["decode_batches"] >= 1
+
+
+def test_two_calls_report_equal_counters(round_trip):
+    assert round_trip["again"] == round_trip["counters"]["compress"]
+
+
+def test_streaming_drivers_span_their_waits(tmp_path, monkeypatch):
+    path = str(tmp_path / "s.bin")
+    data = synthetic(SIZE, 3)
+    with open(path, "wb") as fp:
+        fp.write(data)
+    monkeypatch.setattr(pipeline, "STREAM_THRESHOLD", 100_000)
+    cpu = [torch.profiler.ProfilerActivity.CPU]
+    with _small_blocks(), torch.profiler.profile(activities=cpu) as prof:
+        _cli([path] + COMPRESS)
+        os.remove(path)
+        counts = _cli([path + ".rle.shaf"])
+    with open(path, "rb") as fp:
+        assert fp.read() == data
+    assert counts["file_written_bytes"] == SIZE
+    tpath = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(tpath)
+    names = {s["name"] for s in _user_spans(tpath)}
+    assert {"shafa.overlap.wait_read", "shafa.overlap.wait_write"} <= names
