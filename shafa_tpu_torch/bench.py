@@ -210,24 +210,24 @@ def _device_path_only(i: int):
 def encode_once(backend: TorchBackend, uploaded) -> tuple:
     """One device-path encode of upload_blocks' batches through the
     backend's fused tier, K1 LUT's buffers left on the card: (the encode
-    handle, [(true rows, pack_on_device's result)] a batch). The device
-    has finished when it returns."""
+    handle, [pack_on_device's result] a batch). The device has finished
+    when it returns."""
     h = backend.encode_on_device(uploaded)
     tables = codes_mod.build_code_tables(backend.fused_rle_hists(h))
     if int(tables.lens.max()) > 32:
         raise ValueError("code length > 32 bits: the bench corpus must stay "
                          "on the device path")
     results = [None] * h.n_blocks
-    packs = [(n, backend.pack_on_device(*args)) for _, n, args in
+    packs = [backend.pack_on_device(*args) for _, args in
              backend.fused_pack_batches(h, tables, True, _device_path_only,
                                         results)]
     device_sync(backend.device)
     return h, packs
 
 
-def encode_payloads(packs) -> list[bytes]:
+def encode_payloads(packs) -> list[memoryview]:
     """The packed payload of every block of encode_once's packs."""
-    return [p for n, packed in packs for p in download_packed(*packed)[:n]]
+    return [p for packed in packs for p in download_packed(*packed)]
 
 
 def device_encode_seconds(data: bytes, block: int, reps: int,

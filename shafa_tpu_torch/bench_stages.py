@@ -27,8 +27,8 @@ the original's order:
   compact_words: the packed rows' exact bytes back to back on the device,
       torch.cat of each row's [4 woff, 4 woff + byte_len) slice of K1's
       buffer (torch slicing: on the TPU this was a K1 call). The
-      production route instead downloads K1's buffer once and slices it on
-      the host (device.TorchBackend._pack_rows).
+      production route instead downloads the rows' span of K1's buffer in
+      one copy and takes views of it on the host (device.download_packed).
 
 Beneath each device stage, ``roofline[name]`` gives the least time the card
 could take: the bytes the stage must move (the lanes the data fills read
@@ -55,11 +55,10 @@ import torch
 from . import codes as codes_mod
 from . import oracle
 from .bench_decode_stages import card_line, timeit
-from .device import (DeviceUnavailableError, _stack_blocks, default_device,
-                     tables_to_device)
+from .device import (DeviceUnavailableError, _download_bytes, _row_heads,
+                     _stack_blocks, default_device, tables_to_device)
 from .kernels import emit as kemit
 from .kernels import histogram as khist
-from .kernels import ops as kops
 from .kernels import pack as kpack
 from .kernels import rle as krle
 from .profile_main_path import synthetic
@@ -168,7 +167,7 @@ def main(argv: list[str] | None = None) -> int:
     packed = compact_words().cpu().numpy()
 
     # --- the check ---------------------------------------------------------
-    enc_rows = kops.compact_rows(enc, enc_sizes).cpu().numpy()
+    enc_rows = _download_bytes(_row_heads(enc, enc_sizes))
     failed = []
     e0 = c0 = 0
     for i, blk in enumerate(blocks):

@@ -1,11 +1,12 @@
-"""PyTorch device backend: block batching, padding, kernel dispatch, routing.
+"""PyTorch device backend: block batching, staging, kernel dispatch, routing.
 
 Port of shafa_tpu/device.py. Blocks of a file share one size (except the
-last), so a file's blocks stack into a (B, P) tensor whose true lengths mask
-all padding. The backend implements the pipeline's Backend protocol
-(shafa_tpu/pipeline.py:36-52) and its fused tier, which keeps the raw and
-RLE streams on the card across F -> C and downloads only exact-size byte
-streams.
+last), so a batch of a file's blocks is a (B, P) tensor on the card, B its
+real rows and P a power of two (a multiple of 16, as the kernels need),
+whose true lengths mask the bytes past each row. The backend implements the
+pipeline's Backend protocol (shafa_tpu/pipeline.py:36-52) and its fused
+tier, which keeps the raw and RLE streams on the card across F -> C and
+downloads only exact-size byte streams.
 
 Routing as in the JAX backend: blocks whose codes exceed 32 bits, or whose
 packed size could overflow int32 bit offsets, go to the NumPy oracle;
@@ -15,9 +16,22 @@ codes of at most 16 bits take K2 -> K3, codes of 17-32 bits K5 -> K6 -> K1.
 The counter ``host_decoded_blocks`` (tracing.py) counts the blocks that
 decode on the host by design.
 
-Every copy between the host and the card goes through ``_upload`` or
-``_download``, which count its bytes, whether the host side was pinned
-(``h2d_*`` / ``d2h_*`` counters) and give it a span.
+How copies are staged. Every copy between the host and the card goes
+through ``_upload`` / ``_upload_rows`` or ``_download`` /
+``_download_bytes``, which count its bytes, whether the host side was
+pinned (``h2d_*`` / ``d2h_*`` counters) and give it a span. Each goes
+through a host staging tensor (``_staging``), never zero-filled: on a
+CUDA device it is pinned memory from PyTorch's caching host allocator, so
+calls of one shape reuse the same resident pages and every copy is a
+direct DMA. Only real bytes move: a batch's rows go up as runs of their
+bytes (the bytes past each length are zeros on the card), and rows come
+down joined on the card, in one copy a call.
+
+Buffer lifetime: what a download returns (NumPy arrays, and memoryviews of
+them from ``download_packed``) are views of the staging tensor, whose
+storage they keep alive through the array's base. The allocator takes a
+buffer back only when its last view is gone and the copies recorded on it
+have completed, so no buffer is reused while a view of it lives.
 """
 
 from __future__ import annotations
@@ -35,7 +49,6 @@ from .kernels import decode as kdecode
 from .kernels import emit as kemit
 from .kernels import expand as kexpand
 from .kernels import histogram as khist
-from .kernels import ops as kops
 from .kernels import pack as kpack
 from .kernels import rle as krle
 from .pipeline import host_unpack
@@ -67,12 +80,6 @@ def _bucket(n: int, minimum: int = 256) -> int:
     return b
 
 
-def _row_bucket(n: int, cap: int) -> int:
-    """Pad a row count to a power of two, capped. Copy of
-    shafa_tpu/device.py:63."""
-    return min(_bucket(max(n, 1), minimum=1), max(cap, 1))
-
-
 def _kraft_complete(lens: np.ndarray) -> np.ndarray:
     """(n, 256) code bit lengths -> (n,) bool: Kraft sum exactly 1.
 
@@ -98,51 +105,129 @@ def _slow_decode(payload, code_strings, out_count, expand: bool):
     return oracle.rle_expand(dec) if expand else dec
 
 
-def _stack_blocks(blocks, b_rows: int | None = None, minimum: int = 256):
-    """list of 1-D uint8 -> (B, P) padded + (B,) int32 lengths (host side).
-
-    Copy of shafa_tpu/device.py:102: P is a power-of-two bucket; extra rows
-    (b_rows) have length 0."""
-    with tracing.span("shafa.backend.stack"):
-        lens_l = [b.size for b in blocks]
-        p = _bucket(max(lens_l) if blocks else 1, minimum=minimum)
-        rows = b_rows if b_rows is not None else len(blocks)
-        out = np.zeros((rows, p), dtype=np.uint8)
-        lens = np.zeros(rows, dtype=np.int32)
-        for i, b in enumerate(blocks):
-            out[i, : b.size] = b
-            lens[i] = b.size
-        return out, lens
+def _stack_blocks(blocks, minimum: int = 256):
+    """list of 1-D uint8 -> (B, P) zero-padded host array + (B,) int32
+    lengths, for callers that upload a batch themselves (the bench scripts,
+    chip_smoke.py, tests). Copy of shafa_tpu/device.py:102: P is a
+    power-of-two bucket."""
+    lens = np.array([b.size for b in blocks], np.int32)
+    p = _bucket(int(lens.max()) if blocks else 1, minimum=minimum)
+    out = np.zeros((len(blocks), p), dtype=np.uint8)
+    for i, b in enumerate(blocks):
+        out[i, : b.size] = b
+    return out, lens
 
 
-def _count_copy(way: str, host: torch.Tensor) -> None:
-    """Count one copy (way "h2d" or "d2h") of the host tensor's bytes."""
-    tracing.count(f"{way}_copies")
-    tracing.count(f"{way}_bytes", host.nbytes)
+def _staging(shape, dtype, device) -> torch.Tensor:
+    """A host tensor, not initialised, that stages a copy to or from
+    ``device``: pinned, from PyTorch's caching host allocator, where the
+    device is CUDA."""
+    return torch.empty(shape, dtype=dtype,
+                       pin_memory=torch.device(device).type == "cuda")
+
+
+def _wait(device) -> None:
+    """Wait for the work queued on the device's current stream."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+def _count_copy(way: str, host: torch.Tensor, nbytes: int | None = None,
+                copies: int = 1) -> None:
+    """Count copies (way "h2d" or "d2h") of nbytes of the host tensor (all
+    its bytes by default)."""
+    nbytes = host.nbytes if nbytes is None else nbytes
+    tracing.count(f"{way}_copies", copies)
+    tracing.count(f"{way}_bytes", nbytes)
     if not host.is_pinned():
-        tracing.count(f"{way}_pageable_bytes", host.nbytes)
+        tracing.count(f"{way}_pageable_bytes", nbytes)
 
 
 def _upload(a: np.ndarray, device) -> torch.Tensor:
-    """A host array on the device: the port's one host-to-device copy."""
-    host = torch.from_numpy(np.ascontiguousarray(a))
+    """A small host array (lengths, tables, offsets) on the device, through
+    a staging tensor: one copy, which returns when it is done."""
+    src = torch.from_numpy(np.ascontiguousarray(a))
+    host = _staging(src.shape, src.dtype, device)
+    host.copy_(src)
     with tracing.span("shafa.backend.h2d"):
         out = host.to(device)
     _count_copy("h2d", host)
     return out
 
 
+#: a run of whole rows goes up once it holds this many bytes, so the card
+#: copies it while the host stages the next rows
+RUN_BYTES = 1 << 22
+
+
+def _upload_rows(rows, p: int, device):
+    """1-D uint8 rows (each at most p bytes) -> their (len(rows), p) batch
+    on the device, their int32 lengths on the host and on the device.
+
+    Each row is copied into its row of one staging tensor. Only real bytes
+    go up: rows that fill their width go up together as one copy (up to
+    RUN_BYTES, or up to and with the next row that does not), so the card
+    copies while the host stages the next rows. Where a row is shorter
+    than p, the batch is zeroed on the card first, by one memset, so the
+    bytes past each length are zeros: the card writes a memset far faster
+    than the copies bring the rows, and faster than a mask of the pads
+    alone (arange, compare, masked_fill) is built and applied. It returns
+    when the copies are done, so the staging tensor is free again for the
+    next batch."""
+    lens = np.array([r.size for r in rows], np.int32)
+    host = _staging((len(rows), p), torch.uint8, device)
+    staged, src = host.numpy(), host.view(-1)
+    x = (torch.zeros if (lens < p).any() else torch.empty)(
+        (len(rows), p), dtype=torch.uint8, device=device)
+    dst = x.view(-1)
+    lo = copies = 0  # lo: the first byte not yet sent
+    for i, r in enumerate(rows):
+        with tracing.span("shafa.backend.stack"):
+            staged[i, :r.size] = r
+        hi = i * p + r.size
+        if r.size < p or hi - lo >= RUN_BYTES or i == len(rows) - 1:
+            if hi > lo:
+                with tracing.span("shafa.backend.h2d"):
+                    dst[lo:hi].copy_(src[lo:hi], non_blocking=True)
+                copies += 1
+            lo = (i + 1) * p
+    _count_copy("h2d", host, int(lens.sum()), copies)
+    with tracing.span("shafa.backend.h2d"):
+        _wait(x.device)
+    return x, lens, _upload(lens, device)
+
+
 def _download(t: torch.Tensor) -> np.ndarray:
-    """A device tensor on the host: the port's one device-to-host copy,
+    """A device tensor on the host, through a staging tensor: one copy,
     which waits for the card's work on it."""
+    host = _staging(t.shape, t.dtype, t.device)
     with tracing.span("shafa.backend.d2h"):
-        host = t.cpu()
+        host.copy_(t)
     _count_copy("d2h", host)
     return host.numpy()
 
 
+def _row_heads(rows: torch.Tensor, sizes) -> list[torch.Tensor]:
+    """Row i's first sizes[i] bytes, for each row of a (B, W) uint8 device
+    tensor, as views that one call makes."""
+    w = rows.shape[1]
+    cuts = [c for s in sizes for c in (int(s), w - int(s))]
+    return list(rows[:len(sizes)].reshape(-1).split(cuts)[::2])
+
+
+def _download_bytes(parts) -> np.ndarray:
+    """1-D uint8 tensors of one device -> their bytes back to back in one
+    host array: joined on the device (one torch.cat), then one copy. A
+    copy a part would cost some microseconds of the host each, which
+    thousands of rows add up to."""
+    if not parts:
+        return np.zeros(0, np.uint8)
+    return _download(torch.cat(parts) if len(parts) > 1 else parts[0])
+
+
 def _split_rows(flat: np.ndarray, sizes) -> list[np.ndarray]:
-    """Split a compacted flat buffer into per-row views (no copies)."""
+    """Split a flat buffer of rows back to back into per-row views (no
+    copies)."""
     out = []
     pos = 0
     for s in sizes:
@@ -151,22 +236,17 @@ def _split_rows(flat: np.ndarray, sizes) -> list[np.ndarray]:
     return out
 
 
-def download_packed(flat: torch.Tensor, woff, byte_lens) -> list[bytes]:
+def download_packed(flat: torch.Tensor, woff, byte_lens) -> list[memoryview]:
     """The rows of a packed word buffer (TorchBackend.pack_on_device), each
-    row's exact bytes, after one download."""
-    buf = _download(flat).view(np.uint8)
-    return [buf[4 * int(w):4 * int(w) + int(n)].tobytes()
+    row's exact bytes as a memoryview of one host buffer: the rows' span
+    comes down in one copy (the gaps between rows are under 512 bytes
+    each), and no row is copied again on the host."""
+    if not len(woff):
+        return []
+    end = 4 * int(woff[-1]) + int(byte_lens[-1])
+    buf = _download(flat.view(torch.uint8)[:end])
+    return [memoryview(buf[4 * int(w):4 * int(w) + int(n)])
             for w, n in zip(woff, byte_lens)]
-
-
-def _pad_rows(a: np.ndarray, rows: int, fill_row: int = -1) -> np.ndarray:
-    """a with rows appended up to `rows`: zeros, or copies of a[fill_row]."""
-    with tracing.span("shafa.backend.stack"):
-        out = np.zeros((rows,) + a.shape[1:], a.dtype)
-        out[: a.shape[0]] = a
-        if fill_row >= 0 and rows > a.shape[0]:
-            out[a.shape[0]:] = a[fill_row]
-        return out
 
 
 @dataclasses.dataclass
@@ -202,10 +282,10 @@ def tables_to_device(tables: codes_mod.CodeTables, device,
 
 @dataclasses.dataclass
 class DecodeBatch:
-    """One decode batch on the card: its blocks' indices (its true rows),
-    their payloads stacked (P a multiple of 1024), the payloads' lengths,
-    the output counts (on the host too, padding rows 0), and the tables of
-    its kernels: K2, K3 at s_states 8 or 16, K5, K6, K1 at 32."""
+    """One decode batch on the card: its blocks' indices (one row each),
+    their payloads stacked (P a power of two of at least 1024), the
+    payloads' lengths, the output counts (on the host too), and the tables
+    of its kernels: K2, K3 at s_states 8 or 16, K5, K6, K1 at 32."""
     blocks: list
     payload: torch.Tensor
     payload_lens: torch.Tensor
@@ -220,12 +300,12 @@ class _EncodeHandle:
     """Device-resident state of a fused encode: per-batch tensors."""
 
     def __init__(self):
-        #: dicts: x, lens (host), lens_dev, enc, enc_len, hist, n (true rows)
+        #: dicts: x, lens (host), lens_dev, enc, enc_len, hist
         self.batches = []
 
     @property
     def n_blocks(self):
-        return sum(b["n"] for b in self.batches)
+        return sum(len(b["lens"]) for b in self.batches)
 
 
 class TorchBackend:
@@ -247,7 +327,8 @@ class TorchBackend:
         return _upload(a, self.device)
 
     def _download_rows(self, rows: torch.Tensor, sizes) -> list[np.ndarray]:
-        return _split_rows(_download(kops.compact_rows(rows, sizes)), sizes)
+        """Row i's first sizes[i] bytes, for each row, as host arrays."""
+        return _split_rows(_download_bytes(_row_heads(rows, sizes)), sizes)
 
     # -- Backend protocol (per stage; one transfer each way per batch) ------
 
@@ -255,27 +336,25 @@ class TorchBackend:
         out = []
         h = self.fused_encode(blocks)
         for b in h.batches:
-            out.extend(self._download_rows(b["enc"],
-                                           self._enc_sizes(b)[: b["n"]]))
+            out.extend(self._download_rows(b["enc"], self._enc_sizes(b)))
         return out
 
     def histogram(self, blocks):
         if not blocks:
             return []
-        stacked, lens = _stack_blocks(blocks)
-        bsz = self._bsz(stacked.shape[1])
+        p = _bucket(max(b.size for b in blocks))
+        bsz = self._bsz(p)
         out = []
         for lo in range(0, len(blocks), bsz):
-            h = khist.histogram_batch(self._upload(stacked[lo:lo + bsz]),
-                                      self._upload(lens[lo:lo + bsz]))
-            out.extend(_download(h))
+            x, _, ld = _upload_rows(blocks[lo:lo + bsz], p, self.device)
+            out.extend(_download(khist.histogram_batch(x, ld)))
         return out
 
     def pack(self, blocks, tables, hists=None):
         """blocks + codes.CodeTables (row i = block i's table) -> payloads;
         the payloads' sizes come from hists (row i = block i's histogram)
         where given, else from the blocks' histograms on the card."""
-        results: list[bytes | None] = [None] * len(blocks)
+        results: list[bytes | memoryview | None] = [None] * len(blocks)
         fast = []
         for i, blk in enumerate(blocks):
             if not self._pack_fallback(i, tables, lambda blk=blk: blk,
@@ -283,14 +362,14 @@ class TorchBackend:
                 fast.append(i)
         if not fast:
             return results
-        stacked, lens = _stack_blocks([blocks[i] for i in fast])
-        bsz = self._bsz(stacked.shape[1])
+        p = _bucket(max(blocks[i].size for i in fast))
+        bsz = self._bsz(p)
         for lo in range(0, len(fast), bsz):
             with tracing.span("shafa.backend.pack_batch"):
                 tracing.count("pack_batches")
                 idx = fast[lo:lo + bsz]
-                x = self._upload(stacked[lo:lo + len(idx)])
-                ld = self._upload(lens[lo:lo + len(idx)])
+                x, _, ld = _upload_rows([blocks[i] for i in idx], p,
+                                        self.device)
                 hist = (_download(khist.histogram_batch(x, ld))
                         if hists is None else np.asarray(hists)[idx])
                 sub = codes_mod.CodeTables(tables.lens[idx],
@@ -306,13 +385,13 @@ class TorchBackend:
     def rle_expand(self, blocks):
         if not blocks:
             return []
-        stacked, lens = _stack_blocks(blocks)
+        p = _bucket(max(b.size for b in blocks))
         out = []
-        bsz = self._bsz(stacked.shape[1])
+        bsz = self._bsz(p)
         for lo in range(0, len(blocks), bsz):
-            hi = min(lo + bsz, len(blocks))
-            out.extend(self._expand_rows(self._upload(stacked[lo:hi]),
-                                         self._upload(lens[lo:hi]), hi - lo))
+            rows = blocks[lo:lo + bsz]
+            x, _, ld = _upload_rows(rows, p, self.device)
+            out.extend(self._expand_rows(x, ld, len(rows)))
         return out
 
     # -- shared pieces --------------------------------------------------------
@@ -331,7 +410,7 @@ class TorchBackend:
             return False
         return True
 
-    def _pack_rows(self, x, lengths, hist, tables) -> list[bytes]:
+    def _pack_rows(self, x, lengths, hist, tables) -> list[memoryview]:
         """K1 LUT pack of a batch; exact sizes from the stream histograms."""
         return download_packed(*self.pack_on_device(x, lengths, hist,
                                                     tables))
@@ -382,10 +461,8 @@ class TorchBackend:
         bsz = self._bsz(p)
         for lo in range(0, len(blocks), bsz):
             rows = blocks[lo:lo + bsz]
-            stacked, lens = _stack_blocks(rows,
-                                          _row_bucket(len(rows), bsz))
-            h.batches.append(dict(x=self._upload(stacked), lens=lens,
-                                  lens_dev=self._upload(lens), n=len(rows)))
+            x, lens, ld = _upload_rows(rows, p, self.device)
+            h.batches.append(dict(x=x, lens=lens, lens_dev=ld))
         return h
 
     @staticmethod
@@ -410,7 +487,7 @@ class TorchBackend:
     def fused_rle_hists(self, h: _EncodeHandle):
         """(n_blocks, 256) int64 histograms of the RLE streams."""
         return np.concatenate(
-            [_download(b["hist"][: b["n"]]) for b in h.batches]
+            [_download(b["hist"]) for b in h.batches]
         ) if h.batches else np.zeros((0, 256), np.int64)
 
     def fused_raw_hists(self, h: _EncodeHandle):
@@ -421,32 +498,31 @@ class TorchBackend:
                 b["raw_hist"] = _download(khist.histogram_batch(
                     b["x"], b["lens_dev"]))
         return np.concatenate(
-            [b["raw_hist"][: b["n"]] for b in h.batches]
+            [b["raw_hist"] for b in h.batches]
         ) if h.batches else np.zeros((0, 256), np.int64)
 
     def fused_rle_sizes(self, h: _EncodeHandle) -> np.ndarray:
         return np.concatenate(
-            [self._enc_sizes(b)[: b["n"]] for b in h.batches]
+            [self._enc_sizes(b) for b in h.batches]
         ).astype(np.int64) if h.batches else np.zeros(0, np.int64)
 
     def fused_rle_bytes(self, h: _EncodeHandle) -> np.ndarray:
-        """All RLE streams concatenated in block order (exact bytes)."""
-        parts = [_download(kops.compact_rows(b["enc"],
-                                             self._enc_sizes(b)[: b["n"]]))
-                 for b in h.batches]
-        return np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+        """All RLE streams concatenated in block order (exact bytes), in one
+        host buffer."""
+        return _download_bytes([t for b in h.batches for t in
+                                _row_heads(b["enc"], self._enc_sizes(b))])
 
     def fused_pack(self, h: _EncodeHandle, tables, use_rle: bool,
-                   host_row) -> list[bytes]:
+                   host_row) -> list[bytes | memoryview]:
         """Bit-pack the device-resident streams (RLE or raw) with per-block
         code tables (K1 LUT variant); one download per batch.
 
         host_row(i) -> np.uint8 row i's stream bytes, used only for the rare
         oracle-routed rows (>32-bit codes / offset overflow)."""
-        results: list[bytes | None] = [None] * h.n_blocks
-        for base, n, args in self.fused_pack_batches(h, tables, use_rle,
-                                                     host_row, results):
-            for j, payload in enumerate(self._pack_rows(*args)[:n]):
+        results: list[bytes | memoryview | None] = [None] * h.n_blocks
+        for base, args in self.fused_pack_batches(h, tables, use_rle,
+                                                  host_row, results):
+            for j, payload in enumerate(self._pack_rows(*args)):
                 if results[base + j] is None:  # not routed to the oracle
                     results[base + j] = payload
         return results
@@ -454,9 +530,9 @@ class TorchBackend:
     def fused_pack_batches(self, h: _EncodeHandle, tables, use_rle: bool,
                            host_row, results: list):
         """fused_pack's batches, one at a time: the rows routed to the
-        oracle get their payloads in results; yields (first block, true
-        rows, args) for each batch, where pack_on_device(*args) packs the
-        other rows on the card. A batch's span stays open while the caller
+        oracle get their payloads in results; yields (first block, args)
+        for each batch, where pack_on_device(*args) packs the other rows
+        on the card. A batch's span stays open while the caller
         packs it."""
         base = 0
         if not use_rle:
@@ -464,26 +540,22 @@ class TorchBackend:
         for b in h.batches:
             with tracing.span("shafa.backend.pack_batch"):
                 tracing.count("pack_batches")
-                n = b["n"]
+                n = len(b["lens"])
                 src = b["enc"] if use_rle else b["x"]
                 src_len = (self._enc_sizes(b) if use_rle
-                           else b["lens"]).copy()
-                src_len[n:] = 0
+                           else b["lens"]).astype(np.int32)
                 for j in range(n):
                     i = base + j
                     if self._pack_fallback(i, tables,
                                            lambda i=i: host_row(i),
                                            src_len[j], results):
                         src_len[j] = 0  # mask out of the kernel pass
-                rows = src_len.shape[0]
-                sel = list(range(base, base + n))
-                sub = codes_mod.CodeTables(_pad_rows(tables.lens[sel], rows),
-                                           _pad_rows(tables.vals[sel], rows))
+                sub = codes_mod.CodeTables(tables.lens[base:base + n],
+                                           tables.vals[base:base + n])
                 hist = (_download(b["hist"]) if use_rle
                         else b["raw_hist"]).copy()
-                hist[src_len == 0] = 0  # padding and oracle-routed rows
-                yield base, n, (src, self._upload(src_len.astype(np.int32)),
-                                hist, sub)
+                hist[src_len == 0] = 0  # oracle-routed rows
+                yield base, (src, self._upload(src_len), hist, sub)
             base += n
 
     def fused_decode(self, payloads, tables, out_counts,
@@ -538,16 +610,11 @@ class TorchBackend:
         for lo in range(0, len(group), bsz):
             with tracing.span("shafa.backend.decode_batch"):
                 tracing.count("decode_batches")
-                rows = blocks[lo:lo + bsz]
-                nb = len(rows)
-                b_rows = _row_bucket(nb, bsz)
-                stacked, plens = _stack_blocks(rows, b_rows, minimum=1024)
-                counts = _pad_rows(counts_all[lo:lo + nb], b_rows)
-                sel = group[lo:lo + nb]
-                # padding rows need a decodable table: copy the first row's
-                sub = codes_mod.CodeTables(
-                    _pad_rows(tables.lens[sel], b_rows, 0),
-                    _pad_rows(tables.vals[sel], b_rows, 0))
+                sel = group[lo:lo + bsz]
+                payload, _, plens = _upload_rows(blocks[lo:lo + bsz], p,
+                                                 self.device)
+                counts = counts_all[lo:lo + len(sel)]
+                sub = codes_mod.CodeTables(tables.lens[sel], tables.vals[sel])
                 if wide:
                     pc32, ls, ncodes = kdecode.rank_tables32(
                         kdecode.decode_tables_batch(sub.lens, sub.vals))
@@ -558,8 +625,7 @@ class TorchBackend:
                     dt = tables_to_device(sub, self.device, decode=True)
                     tabs = (dt.pc16, dt.ls, dt.lut12)
                     s_states = 8 if int(sub.lens.max()) <= 8 else 16
-                yield DecodeBatch(sel, self._upload(stacked),
-                                  self._upload(plens), counts,
+                yield DecodeBatch(sel, payload, plens, counts,
                                   self._upload(counts), out_p, s_states, tabs)
 
     @staticmethod
@@ -574,18 +640,18 @@ class TorchBackend:
 
     def _decode_group(self, payloads, tables, out_counts, expand, group,
                       results, wide: bool) -> None:
-        """Decode blocks of one code width in batches, then K4 or a
-        compaction."""
+        """Decode blocks of one code width in batches, then K4 or each
+        row's exact bytes downloaded."""
         for bt in self.decode_batches(payloads, tables, out_counts, group,
                                       wide):
-            nb = len(bt.blocks)
             dec, under = self.decode_on_device(bt)
-            if bool(_download(under[:nb].any())):
+            if bool(_download(under.any())):
                 raise FileUnrecognizableError(
                     "compressed stream exhausted early")
             if expand:
-                out_rows = self._expand_rows(dec, bt.counts_dev, nb)
+                out_rows = self._expand_rows(dec, bt.counts_dev,
+                                             len(bt.blocks))
             else:
-                out_rows = self._download_rows(dec, bt.counts[:nb])
+                out_rows = self._download_rows(dec, bt.counts)
             for j, row in enumerate(out_rows):
                 results[bt.blocks[j]] = row

@@ -181,7 +181,8 @@ class ShardedBackend:
                                be.fused_rle_bytes(sub))
         return np.concatenate(parts) if parts else np.zeros(0, np.uint8)
 
-    def fused_pack(self, h, tables, use_rle: bool, host_row) -> list[bytes]:
+    def fused_pack(self, h, tables, use_rle: bool,
+                   host_row) -> list[bytes | memoryview]:
         return self._joined(self._per_part(h, lambda be, lo, hi, sub: (
             be.fused_pack(sub, _sub_tables(tables, lo, hi), use_rle,
                           lambda j: host_row(lo + j)))))

@@ -54,10 +54,11 @@ class Backend(Protocol):
 
     def pack(self, blocks: Sequence[np.ndarray],
              tables: "codes_mod.CodeTables",
-             hists: np.ndarray | None = None) -> list[bytes]:
+             hists: np.ndarray | None = None) -> list[bytes | memoryview]:
         """hists: the blocks' (n, 256) histograms where the caller has
         them (the streaming drivers' .freq rows), so that a backend need
-        not count the blocks again for the payloads' sizes."""
+        not count the blocks again for the payloads' sizes. A payload is
+        bytes, or a memoryview of the host buffer it was downloaded to."""
 
     def unpack(self, payloads: Sequence[bytes],
                tables: "codes_mod.CodeTables",
@@ -131,13 +132,18 @@ class CheckedBackend:
     def supports_fused(self) -> bool:
         return getattr(self.inner, "supports_fused", False)
 
+    @staticmethod
+    def _as_array(x) -> np.ndarray:
+        """A result as an array: a payload (bytes, or a memoryview of a
+        host buffer) as its bytes."""
+        if isinstance(x, (bytes, bytearray, memoryview)):
+            return np.frombuffer(x, np.uint8)
+        return np.asarray(x)
+
     def _cmp(self, stage, got, want):
         for i, (g, w) in enumerate(zip(got, want)):
-            ga = g if isinstance(g, bytes) else np.asarray(g)
-            wa = w if isinstance(w, bytes) else np.asarray(w)
-            same = (ga == wa) if isinstance(ga, bytes) else \
-                (ga.shape == wa.shape and bool((ga == wa).all()))
-            if not same:
+            ga, wa = self._as_array(g), self._as_array(w)
+            if not (ga.shape == wa.shape and bool((ga == wa).all())):
                 raise AssertionError(
                     f"--check: {stage} mismatch vs oracle at block {i}")
         return got

@@ -75,7 +75,7 @@ def test_encode_payloads_match_the_jax_package(monkeypatch):
     data = synthetic(4 * BLOCK + 70_001, 5)
     backend = device.TorchBackend(CPU)
     uploaded = backend.upload_blocks(_blocks(data))
-    assert [b["n"] for b in uploaded.batches] == [2, 2, 1]
+    assert [len(b["lens"]) for b in uploaded.batches] == [2, 2, 1]
     _h, packs = bench.encode_once(backend, uploaded)
     got = bench.encode_payloads(packs)
     enc = [joracle.rle_encode(b) for b in _blocks(data)]

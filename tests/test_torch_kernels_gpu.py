@@ -6,6 +6,8 @@ Inputs come from numpy seeds; each kernel runs on CUDA tensors and its plain
 version on the same values on the CPU; every comparison is exact.
 """
 
+import contextlib
+import io
 import os
 
 import numpy as np
@@ -13,7 +15,7 @@ import pytest
 import torch
 
 from shafa_tpu import codes as codes_mod, oracle
-from shafa_tpu_torch import pipeline, tracing
+from shafa_tpu_torch import cli, device, geometry, pipeline, tracing
 from shafa_tpu_torch.device import (TorchBackend, _bucket, _stack_blocks,
                                     tables_to_device)
 from shafa_tpu_torch.kernels import _build, decode, emit, expand, rle
@@ -635,3 +637,66 @@ def test_backend_round_trip_on_the_card(cuda, tmp_path):
     with open(a, "rb") as fp:
         assert fp.read() == data
 
+
+def _pinned_segments() -> dict:
+    """The caching host allocator's counts of pinned memory it took from
+    CUDA."""
+    stats = torch.cuda.host_memory_stats()
+    got = {k: v for k, v in stats.items()
+           if k.startswith(("num_host_alloc", "segment.", "reserved_bytes."))}
+    assert got, f"no allocation counts among {sorted(stats)}"
+    return got
+
+
+def _round_trip(d, data, backend: str) -> tuple[dict, dict, dict]:
+    """The CLI's compress and decompress of data in directory d: (each
+    direction's counters, the files the compress wrote by name)."""
+    d.mkdir(exist_ok=True)
+    path = str(d / "a.bin")
+    with open(path, "wb") as fp:
+        fp.write(data)
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main([path, "-b", "K", "--backend", backend]) == 0
+        comp = tracing.counters()
+        files = {}
+        for name in sorted(os.listdir(d)):
+            with open(d / name, "rb") as fp:
+                files[name] = fp.read()
+        os.remove(path)
+        (shaf,) = [n for n in files if n.endswith(".shaf")]
+        assert cli.main([str(d / shaf)]) == 0
+        dec = tracing.counters()
+    with open(path, "rb") as fp:
+        assert fp.read() == data
+    return comp, dec, files
+
+
+def test_cli_round_trip_stages_real_rows_in_reused_pinned_memory(
+        cuda, tmp_path, monkeypatch):
+    """13 blocks, the last half full, in encode batches of 8 and 5 (8 MiB
+    blocks scaled down to 64 KiB through -b K and MAX_BATCH_ELEMS), through
+    the CLI on the card: every sidecar equals --backend numpy's and the
+    file comes back exactly; no copy is pageable; the compress uploads the
+    input's bytes and the lengths and tables only; a second identical round
+    trip takes no new pinned memory from CUDA."""
+    block = 1 << 16
+    size = 12 * block + block // 2
+    monkeypatch.delenv("SHAFA_TORCH_DEVICE", raising=False)
+    monkeypatch.setitem(geometry.BLOCK_SIZE_BY_FLAG, "K", block)
+    monkeypatch.setattr(device, "MAX_BATCH_ELEMS", 8 * block)
+    data = mixed(size, seed=17)
+    comp, dec, files = _round_trip(tmp_path / "torch", data, "torch")
+    _, _, want = _round_trip(tmp_path / "numpy", data, "numpy")
+    assert files == want
+    assert comp["encode_batches"] == comp["pack_batches"] == 2
+    # each batch of n rows: their lengths, the pack's stream lengths, K1's
+    # two (n, 256) int32 tables and the rows' word offsets
+    assert comp["h2d_bytes"] == size + sum(
+        4 * n + 4 * n + 2 * n * 256 * 4 + 4 * n for n in (8, 5))
+    for c in (comp, dec):
+        assert c["h2d_pageable_bytes"] == c["d2h_pageable_bytes"] == 0
+        assert c["h2d_bytes"] > 0 and c["d2h_bytes"] > 0
+    before = _pinned_segments()
+    again = _round_trip(tmp_path / "again", data, "torch")
+    assert _pinned_segments() == before
+    assert again[:2] == (comp, dec)

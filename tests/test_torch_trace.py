@@ -4,8 +4,8 @@ in a torch.profiler trace, the counters against the files and the staged
 arrays, the no-op span without a profiler, the streaming drivers' waits.
 
 The round trip runs at 100,000-byte blocks (-b K patched), three of them,
-in one device batch of four rows (MAX_BATCH_ELEMS patched): the batch has
-one padding row, as _row_bucket gives it."""
+in one device batch (MAX_BATCH_ELEMS patched to four rows): the batch has
+the three rows that exist, and no padding row."""
 
 import contextlib
 import io
@@ -145,21 +145,43 @@ def test_file_bytes_are_the_files_on_disk(round_trip, direction):
         assert c["file_written_bytes"] == round_trip["restored"] == SIZE
 
 
-def test_h2d_bytes_are_the_staged_arrays(round_trip):
-    """One batch: the (rows, P) blocks and their lengths; for the pack,
+def _h2d_bytes(size: int, rows_a_batch: list[int]) -> int:
+    """What a compress of size bytes in batches of these rows uploads: the
+    blocks' own bytes, and for each batch its rows' lengths; for the pack,
     the stream lengths, K1's two (rows, 256) int32 tables and the rows'
-    word offsets. All pageable on the host."""
+    word offsets."""
+    return size + sum(4 * n + 4 * n + 2 * n * 256 * 4 + 4 * n
+                      for n in rows_a_batch)
+
+
+def test_h2d_bytes_are_the_staged_arrays(round_trip):
+    """One batch of the three real rows, each row's real bytes only, all
+    staged in pageable host memory on the CPU."""
     c = round_trip["counters"]["compress"]
-    p = device._bucket(BLOCK)
-    rows = device._row_bucket(SIZE // BLOCK, 4)  # batches of 4 blocks
-    assert rows == 4
-    assert c["h2d_bytes"] == rows * p + rows * 4 \
-        + rows * 4 + 2 * rows * 256 * 4 + rows * 4
+    assert c["h2d_bytes"] == _h2d_bytes(SIZE, [SIZE // BLOCK])
     assert c["h2d_pageable_bytes"] == c["h2d_bytes"]
     assert c["d2h_pageable_bytes"] == c["d2h_bytes"] > 0
     assert c["encode_batches"] == c["pack_batches"] == 1
     assert c["decode_batches"] == c["host_decoded_blocks"] == 0
     assert round_trip["counters"]["decompress"]["decode_batches"] >= 1
+
+
+def test_a_short_last_batch_uploads_only_its_rows(tmp_path):
+    """Five blocks in batches of four: the second batch is one row, not a
+    bucketed four, and the last block goes up without its tail."""
+    size = 5 * BLOCK - 12_345
+    path = str(tmp_path / "a.bin")
+    data = synthetic(size, 4)
+    with open(path, "wb") as fp:
+        fp.write(data)
+    with _small_blocks():
+        c = _cli([path] + COMPRESS)
+        os.rename(path, path + ".orig")
+        _cli([path + ".rle.shaf"])
+    with open(path, "rb") as fp:
+        assert fp.read() == data
+    assert c["encode_batches"] == c["pack_batches"] == 2
+    assert c["h2d_bytes"] == _h2d_bytes(size, [4, 1])
 
 
 def test_two_calls_report_equal_counters(round_trip):
