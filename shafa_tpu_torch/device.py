@@ -13,8 +13,9 @@ packed size could overflow int32 bit offsets, go to the NumPy oracle;
 all-empty tables go to the oracle; tables that are not Kraft-complete go to
 the trie-semantics slow decode. Decode splits at 16 bits of code width:
 codes of at most 16 bits take K2 -> K3, codes of 17-32 bits K5 -> K6 -> K1.
-The counter ``host_decoded_blocks`` (tracing.py) counts the blocks that
-decode on the host by design.
+The counters ``decode_blocks16`` and ``decode_blocks32`` (tracing.py)
+count the blocks each route decodes on the card, ``host_decoded_blocks``
+those that decode on the host by design.
 
 How copies are staged. Every copy between the host and the card goes
 through ``_upload`` / ``_upload_rows`` or ``_download`` /
@@ -418,9 +419,10 @@ class TorchBackend:
     def pack_on_device(self, x, lengths, hist, tables):
         """K1 LUT pack of a batch, left on the card: (the flat int32 word
         buffer, each row's word offset, each row's exact byte length)."""
-        byte_lens = kpack.pack_byte_lens(
-            hist, np.clip(tables.lens.astype(np.int32), 0, 32))
-        dt = tables_to_device(tables, self.device)
+        with tracing.span("shafa.backend.tables"):
+            byte_lens = kpack.pack_byte_lens(
+                hist, np.clip(tables.lens.astype(np.int32), 0, 32))
+            dt = tables_to_device(tables, self.device)
         woff, need = kemit.aligned_offsets(byte_lens)
         flat = kpack.pack_batch(x, lengths, dt.lut_len, dt.lut_val,
                                 self._upload(woff), need)
@@ -600,31 +602,39 @@ class TorchBackend:
                        wide: bool):
         """The blocks of group, whose codes have 17-32 bits if wide and at
         most 16 if not, in decode batches on the card with their tables, one
-        batch at a time (shafa_tpu/device.py:602-672). A batch's span stays
-        open while the caller decodes it."""
+        batch at a time (shafa_tpu/device.py:602-672). A batch's span
+        (``shafa.backend.decode_batch``, ``.decode_batch32`` if wide) stays
+        open while the caller decodes it; ``shafa.backend.tables`` covers
+        its tables' build and upload."""
         blocks = [np.frombuffer(payloads[i], np.uint8) for i in group]
         p = _bucket(max(b.size for b in blocks), minimum=1024)
         bsz = self._bsz(p * 2)
         counts_all = np.array([out_counts[i] for i in group], np.int32)
         out_p = _bucket(int(counts_all.max()))
+        span = ("shafa.backend.decode_batch32" if wide
+                else "shafa.backend.decode_batch")
+        routed = "decode_blocks32" if wide else "decode_blocks16"
         for lo in range(0, len(group), bsz):
-            with tracing.span("shafa.backend.decode_batch"):
+            with tracing.span(span):
                 tracing.count("decode_batches")
                 sel = group[lo:lo + bsz]
+                tracing.count(routed, len(sel))
                 payload, _, plens = _upload_rows(blocks[lo:lo + bsz], p,
                                                  self.device)
                 counts = counts_all[lo:lo + len(sel)]
                 sub = codes_mod.CodeTables(tables.lens[sel], tables.vals[sel])
-                if wide:
-                    pc32, ls, ncodes = kdecode.rank_tables32(
-                        kdecode.decode_tables_batch(sub.lens, sub.vals))
-                    lut = kdecode.rank_lut12_32(pc32, ls, ncodes)
-                    tabs = tuple(map(self._upload, (pc32, ls, ncodes, lut)))
-                    s_states = 32
-                else:
-                    dt = tables_to_device(sub, self.device, decode=True)
-                    tabs = (dt.pc16, dt.ls, dt.lut12)
-                    s_states = 8 if int(sub.lens.max()) <= 8 else 16
+                with tracing.span("shafa.backend.tables"):
+                    if wide:
+                        pc32, ls, ncodes = kdecode.rank_tables32(
+                            kdecode.decode_tables_batch(sub.lens, sub.vals))
+                        lut = kdecode.rank_lut12_32(pc32, ls, ncodes)
+                        tabs = tuple(map(self._upload,
+                                         (pc32, ls, ncodes, lut)))
+                        s_states = 32
+                    else:
+                        dt = tables_to_device(sub, self.device, decode=True)
+                        tabs = (dt.pc16, dt.ls, dt.lut12)
+                        s_states = 8 if int(sub.lens.max()) <= 8 else 16
                 yield DecodeBatch(sel, payload, plens, counts,
                                   self._upload(counts), out_p, s_states, tabs)
 

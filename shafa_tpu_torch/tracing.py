@@ -19,7 +19,11 @@ allocates on the card. The names are ``shafa.<layer>.<step>``:
   * ``shafa.codes.build``;
   * ``shafa.backend.stack``, ``.h2d``, ``.d2h`` (the host's wait for the
     card and the copy), ``.encode_batch``, ``.pack_batch``,
-    ``.decode_batch``;
+    ``.decode_batch`` (a batch of codes of at most 16 bits),
+    ``.decode_batch32`` (17-32 bits);
+  * ``shafa.backend.tables``: one batch's code tables built on the host
+    and uploaded (the pack's packed sizes and K1's tables; a decode
+    batch's K2/K3 or K5/K6 tables);
   * ``shafa.dist.worker.<k>``: one call on a worker thread of
     ``dist.ShardedBackend``.
 
@@ -28,6 +32,9 @@ started with ``profile_all_threads``, as ``--profile`` starts it: the
 spans of worker threads are then in the trace too.
 
 Counters. ``count(name, n)`` adds n to a counter under a lock, always on.
+``decode_blocks16`` and ``decode_blocks32`` count the blocks that decode
+on the card through each route, ``host_decoded_blocks`` those decoded on
+the host; the three add up to the blocks a call decodes.
 ``cli.main`` calls ``reset()`` at its start, so ``counters()`` gives the
 last call's (``--json`` reports them under ``"counters"``).
 """
@@ -45,7 +52,7 @@ COUNTERS = (
     "d2h_bytes", "d2h_pageable_bytes", "d2h_copies",
     "encode_batches", "pack_batches", "decode_batches",
     "file_read_bytes", "file_written_bytes",
-    "host_decoded_blocks",
+    "decode_blocks16", "decode_blocks32", "host_decoded_blocks",
 )
 
 _NOOP = contextlib.nullcontext()

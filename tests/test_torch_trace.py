@@ -5,7 +5,9 @@ arrays, the no-op span without a profiler, the streaming drivers' waits.
 
 The round trip runs at 100,000-byte blocks (-b K patched), three of them,
 in one device batch (MAX_BATCH_ELEMS patched to four rows): the batch has
-the three rows that exist, and no padding row."""
+the three rows that exist, and no padding row. The synthetic mix's codes
+have at most 16 bits; a second round trip, of text with rare bytes, has
+codes of 17 bits in every block, so its decode takes the other route."""
 
 import contextlib
 import io
@@ -16,7 +18,7 @@ import pytest
 import torch
 
 from shafa_tpu_torch import cli, device, geometry, pipeline, tracing
-from shafa_tpu_torch.profile_main_path import synthetic
+from shafa_tpu_torch.profile_main_path import synthetic, text_with_rare_bytes
 
 BLOCK = 100_000
 SIZE = 300_000
@@ -32,13 +34,21 @@ SPANS = {
         "shafa.io.read.input", "shafa.io.write.rle", "shafa.io.write.freq",
         "shafa.io.write.cod", "shafa.io.write.shaf", "shafa.codes.build",
         "shafa.backend.stack", "shafa.backend.h2d", "shafa.backend.d2h",
-        "shafa.backend.encode_batch", "shafa.backend.pack_batch"},
+        "shafa.backend.encode_batch", "shafa.backend.pack_batch",
+        "shafa.backend.tables"},
     "decompress": {
         "shafa.cli.main", "shafa.cli.make_backend", "shafa.pipeline.d",
         "shafa.io.read.cod", "shafa.io.read.shaf", "shafa.io.write.restored",
         "shafa.backend.stack", "shafa.backend.h2d", "shafa.backend.d2h",
-        "shafa.backend.decode_batch"},
+        "shafa.backend.tables"},
 }
+#: Each round trip's data, and the decode batch span of the route its
+#: codes take (at most 16 bits, or 17-32); the other route's must not show.
+DATA = {"synthetic": (lambda: synthetic(SIZE, 3),
+                      "shafa.backend.decode_batch"),
+        "text": (lambda: text_with_rare_bytes(SIZE),
+                 "shafa.backend.decode_batch32")}
+DECODE_SPANS = {route for _, route in DATA.values()}
 
 
 def _cli(argv) -> dict:
@@ -65,15 +75,12 @@ def _user_spans(trace_path: str) -> list[dict]:
             and e.get("ph") == "X"]
 
 
-@pytest.fixture(scope="module")
-def round_trip(tmp_path_factory):
-    """One round trip, each direction under its own CPU profiler, then a
-    second compress of the same input with no profiler: the counters of
-    each call, the trace's spans, and the sizes of the files each wrote
-    or read."""
-    d = tmp_path_factory.mktemp("trace")
+def _traced_round_trip(d, data: bytes, again: bool) -> dict:
+    """One round trip of data, each direction under its own CPU profiler,
+    then, if again, a second compress of the same input with no profiler:
+    the counters of each call, the trace's spans, and the sizes of the
+    files each wrote or read."""
     path = str(d / "a.bin")
-    data = synthetic(SIZE, 3)
     with open(path, "wb") as fp:
         fp.write(data)
     out = {"spans": {}, "counters": {}, "json": {}}
@@ -97,8 +104,23 @@ def round_trip(tmp_path_factory):
             assert fp.read() == data
         out["restored"] = os.path.getsize(path)
         os.replace(path + ".orig", path)
-        out["again"] = _cli([path] + COMPRESS)
+        if again:
+            out["again"] = _cli([path] + COMPRESS)
     return out
+
+
+@pytest.fixture(scope="module")
+def round_trip(tmp_path_factory):
+    """The synthetic mix's traced round trip, and a second compress."""
+    return _traced_round_trip(tmp_path_factory.mktemp("trace"),
+                              DATA["synthetic"][0](), again=True)
+
+
+@pytest.fixture(scope="module")
+def text_round_trip(tmp_path_factory):
+    """The text's traced round trip."""
+    return _traced_round_trip(tmp_path_factory.mktemp("text"),
+                              DATA["text"][0](), again=False)
 
 
 def test_span_is_the_shared_noop_without_a_profiler(tmp_path, monkeypatch):
@@ -117,11 +139,17 @@ def test_span_is_the_shared_noop_without_a_profiler(tmp_path, monkeypatch):
         _cli([path + ".rle.shaf"])
 
 
+@pytest.mark.parametrize("data", list(DATA))
 @pytest.mark.parametrize("direction", ["compress", "decompress"])
-def test_main_path_spans_are_in_the_trace(round_trip, direction):
-    spans = round_trip["spans"][direction]
+def test_main_path_spans_are_in_the_trace(round_trip, text_round_trip,
+                                          direction, data):
+    trip = round_trip if data == "synthetic" else text_round_trip
+    spans = trip["spans"][direction]
     names = {s["name"] for s in spans}
     assert SPANS[direction] <= names
+    route = DATA[data][1]
+    assert names & DECODE_SPANS == ({route} if direction == "decompress"
+                                    else set())
     (main,) = [s for s in spans if s["name"] == "shafa.cli.main"]
     stages = [s for s in spans if s["name"].startswith("shafa.pipeline.")]
     for s in spans:
