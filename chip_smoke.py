@@ -24,7 +24,12 @@ Phases, each fatal on failure:
      alone), K5 (below each row's
      payload, where its planes are specified), K6 (its interleaved (B, 2P)
      vals and lens and its underrun flags) and K4 (untimed) on the (4, 8
-     MiB) decode batch of the 200 MB text corpus; beside each, the least
+     MiB) decode batch of the 200 MB text corpus, and K9 (a decode batch's
+     rank tables and 12-bit table, built on the card) against the host
+     builders, exact, on the mixed decode batch's (4, 256) code tables
+     (untimed) and, timed, on the (64, 256) code tables of 64 blocks of
+     640 KiB of the text corpus (the text_K cells' decode batch); beside
+     each, the least
      time the card could take (bytes over 3.35 TB/s) and, for K4,
      torch.repeat_interleave, the one PyTorch call that computes the
      expansion from the token fields;
@@ -197,16 +202,20 @@ SOURCES = {
               "shafa_tpu/kernels/decode.py:631"),
     "rle_encode": ("shafa_tpu_torch/kernels/csrc/rle_encode.cu",
                    "shafa_tpu/kernels/rle.py:85"),
+    # no TPU kernel: the JAX package builds these tables on the host
+    "decode_tables": ("shafa_tpu_torch/kernels/csrc/decode_tables.cu",
+                      "none (host NumPy, shafa_tpu/kernels/decode.py:95, "
+                      ":330, :466)"),
 }
 
 #: Kernels each main path must launch. K1's bits variant ("emit_bits")
 #: runs only where codes of 17-32 bits decode (K6 -> K1) and in the
 #: decode-stage benchmark: every compress encodes with K8 ("rle_encode").
 PATH_KERNELS = {
-    "mixed": ("rle_encode", "emit_coded", "rank", "fsm_decode",
-              "expand_sizes", "expand"),
-    "text": ("rle_encode", "emit_bits", "emit_coded", "rank32", "fsm32",
-             "expand_sizes", "expand"),
+    "mixed": ("rle_encode", "emit_coded", "decode_tables", "rank",
+              "fsm_decode", "expand_sizes", "expand"),
+    "text": ("rle_encode", "emit_bits", "emit_coded", "decode_tables",
+             "rank32", "fsm32", "expand_sizes", "expand"),
     "streaming": ("rle_encode", "emit_coded", "rank", "fsm_decode",
                   "expand_sizes", "expand"),
     "decode_stages": ("fsm_packs", "rank", "fsm_decode", "expand_sizes",
@@ -397,6 +406,8 @@ def kernel_phase(data: bytes, dev) -> list[dict]:
     if int(sub.lens.max()) > 16:
         fail("the corpus's first blocks have codes over 16 bits")
     dd = tables_to_device(sub, dev, decode=True)
+    host_tables_equal("K9 decode_tables on the mixed decode batch", sub,
+                      (dd.pc16, dd.ls, dd.lut12), wide=False)
     s_states = 8 if int(sub.lens.max()) <= 8 else 16
     out_p = _bucket(int(counts_np[:drows].max()))
     px = torch.from_numpy(pst).to(dev)
@@ -608,6 +619,48 @@ def k5_tables(tables, dev) -> list:
     return [torch_from(a, dev) for a in (*tabs, decode.rank_lut12_32(*tabs))]
 
 
+def host_tables_equal(name: str, tables, got, wide: bool) -> None:
+    """K9's tables on the card against the host builders' (decode.
+    decode_tables_plain), exact."""
+    from shafa_tpu_torch.device import _code_hi32
+    from shafa_tpu_torch.kernels import decode
+    want = decode.decode_tables_plain(torch_from(tables.lens, "cpu"),
+                                      torch_from(_code_hi32(tables), "cpu"),
+                                      wide)
+    if len(got) != len(want) or any(
+            g.dtype != w.dtype or not np.array_equal(g.cpu().numpy(),
+                                                     w.numpy())
+            for g, w in zip(got, want)):
+        fail(f"{name}: the card's tables differ from the host builders'")
+
+
+def decode_tables_row(text: bytes, dev) -> dict:
+    """K9 against the host builders on the wide route, exact, then timed:
+    the code tables of the text corpus's first 64 blocks of 640 KiB (-b
+    K), a text_K decode batch. The bound counts the code lengths and codes
+    read once and the tables written once."""
+    from shafa_tpu_torch import codes as codes_mod, oracle
+    from shafa_tpu_torch.device import _code_hi32
+    from shafa_tpu_torch.kernels import decode
+    rows, block = 64, 640 << 10
+    tables = codes_mod.build_code_tables(np.stack(
+        [oracle.histogram(np.frombuffer(text, np.uint8, block, i * block))
+         for i in range(rows)]))
+    if not (tables.lens.max(axis=1) > 16).all():
+        fail("the text corpus's 640 KiB blocks have codes of at most 16 "
+             "bits")
+    lens, hi32 = torch_from(tables.lens, dev), torch_from(
+        _code_hi32(tables), dev)
+    got = decode.decode_tables_on_device(lens, hi32, True)
+    host_tables_equal("K9 decode_tables", tables, got, True)
+    r = compare("K9 decode_tables",
+                lambda: decode.decode_tables_on_device(lens, hi32, True),
+                lambda: [t.to(dev) for t in decode.decode_tables_plain(
+                    lens, hi32, True)],
+                nbytes(lens, hi32, *got), lambda t: list(t))
+    return dict(name="decode_tables", shape=[rows, 256], **r)
+
+
 def torch_from(a: np.ndarray, dev):
     import torch
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -669,6 +722,7 @@ def kernel32_phase(text: bytes, dev) -> list[dict]:
                 48 * payload + nbytes(pl, cnt) + drows, lambda t: list(t))
     results.append(dict(name="fsm32", shape=[drows, pst.shape[1]], **r))
     del planes
+    results.append(decode_tables_row(text, dev))
     dec, under = decode.decode_batch32(px, pl, *k5, cnt,
                                        _bucket(int(counts_np.max())))
     if bool(under.any()):
@@ -1963,7 +2017,8 @@ def main(argv: list[str] | None = None) -> int:
                            "<0> K3's, <1> K7's)", "fsm16_"),
                           ("K4", "expand_"), ("K5", "rank32_"),
                           ("K6", "fsm32_"),
-                          ("K8 (one pass)", "rle_enc_")):
+                          ("K8 (one pass)", "rle_enc_"),
+                          ("K9", "decode_tables")):
         res = _build.resources(prefix)
         if not res:
             fail(f"no ptxas report of {label}'s kernels")

@@ -12,7 +12,9 @@ Routing as in the JAX backend: blocks whose codes exceed 32 bits, or whose
 packed size could overflow int32 bit offsets, go to the NumPy oracle;
 all-empty tables go to the oracle; tables that are not Kraft-complete go to
 the trie-semantics slow decode. Decode splits at 16 bits of code width:
-codes of at most 16 bits take K2 -> K3, codes of 17-32 bits K5 -> K6 -> K1.
+codes of at most 16 bits take K2 -> K3, codes of 17-32 bits K5 -> K6 -> K1;
+either route's tables are built on the card from the batch's code lengths
+and codes (K9).
 The counters ``decode_blocks16`` and ``decode_blocks32`` (tracing.py)
 count the blocks each route decodes on the card, ``host_decoded_blocks``
 those that decode on the host by design.
@@ -265,19 +267,33 @@ class DeviceTables:
     lut12: torch.Tensor | None = None
 
 
+def _code_hi32(tables: codes_mod.CodeTables) -> np.ndarray:
+    """The high 32 bits of the left-aligned codes, (n, 256) int32: the
+    whole code where it has at most 32 bits."""
+    return (tables.vals >> np.uint64(32)).astype(np.uint32).view(np.int32)
+
+
+def decode_tables_to_device(tables: codes_mod.CodeTables, device,
+                            wide: bool) -> tuple:
+    """A decode batch's code tables -> its rank kernel's tables on the
+    device (kernels/decode.decode_tables_on_device): the code lengths and
+    codes go up, and K9 builds the tables there (on the CPU, their plain
+    version). Every row needs codes of 1-32 bits, of 1-16 if not wide."""
+    return kdecode.decode_tables_on_device(
+        _upload(tables.lens, device), _upload(_code_hi32(tables), device),
+        wide)
+
+
 def tables_to_device(tables: codes_mod.CodeTables, device,
                      decode: bool = False) -> DeviceTables:
     """Host codes.CodeTables -> the port's device tensors: K1's LUTs and,
     with decode=True, K2/K3's tables (every row needs codes of 1-16 bits)."""
     cl = np.clip(tables.lens.astype(np.int32), 0, 32)
-    cv = (tables.vals >> np.uint64(32)).astype(np.uint32).view(np.int32)
-    out = DeviceTables(_upload(cl, device), _upload(cv, device))
+    out = DeviceTables(_upload(cl, device),
+                       _upload(_code_hi32(tables), device))
     if decode:
-        pc16, ls = kdecode.rank_tables(
-            kdecode.decode_tables_batch(tables.lens, tables.vals))
-        out.pc16 = _upload(pc16, device)
-        out.ls = _upload(ls, device)
-        out.lut12 = _upload(kdecode.rank_lut12(pc16, ls), device)
+        out.pc16, out.ls, out.lut12 = decode_tables_to_device(
+            tables, device, wide=False)
     return out
 
 
@@ -605,7 +621,8 @@ class TorchBackend:
         batch at a time (shafa_tpu/device.py:602-672). A batch's span
         (``shafa.backend.decode_batch``, ``.decode_batch32`` if wide) stays
         open while the caller decodes it; ``shafa.backend.tables`` covers
-        its tables' build and upload."""
+        the upload of its code tables and the launch that builds its
+        kernels' tables from them on the card (K9)."""
         blocks = [np.frombuffer(payloads[i], np.uint8) for i in group]
         p = _bucket(max(b.size for b in blocks), minimum=1024)
         bsz = self._bsz(p * 2)
@@ -624,17 +641,9 @@ class TorchBackend:
                 counts = counts_all[lo:lo + len(sel)]
                 sub = codes_mod.CodeTables(tables.lens[sel], tables.vals[sel])
                 with tracing.span("shafa.backend.tables"):
-                    if wide:
-                        pc32, ls, ncodes = kdecode.rank_tables32(
-                            kdecode.decode_tables_batch(sub.lens, sub.vals))
-                        lut = kdecode.rank_lut12_32(pc32, ls, ncodes)
-                        tabs = tuple(map(self._upload,
-                                         (pc32, ls, ncodes, lut)))
-                        s_states = 32
-                    else:
-                        dt = tables_to_device(sub, self.device, decode=True)
-                        tabs = (dt.pc16, dt.ls, dt.lut12)
-                        s_states = 8 if int(sub.lens.max()) <= 8 else 16
+                    tabs = decode_tables_to_device(sub, self.device, wide)
+                s_states = (32 if wide else
+                            8 if int(sub.lens.max()) <= 8 else 16)
                 yield DecodeBatch(sel, payload, plens, counts,
                                   self._upload(counts), out_p, s_states, tabs)
 

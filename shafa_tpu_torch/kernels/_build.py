@@ -1,4 +1,4 @@
-"""Build and bind the CUDA kernels (K1-K8).
+"""Build and bind the CUDA kernels (K1-K9).
 
 Each ``csrc/*.cu`` file compiles with its own ``nvcc`` process, all started
 together, and one more ``nvcc`` links the objects into one shared library
@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: Launches per kernel: ``launch`` adds one to its kernel's count.
 launches = {"emit_bits": 0, "emit_coded": 0, "rank": 0, "fsm_decode": 0,
             "expand_sizes": 0, "expand": 0, "rank32": 0, "fsm32": 0,
-            "fsm_packs": 0, "rle_encode": 0}
+            "fsm_packs": 0, "rle_encode": 0, "decode_tables": 0}
 
 #: Seconds the last build took (0.0 when the library was already built).
 build_seconds = 0.0
@@ -58,6 +58,7 @@ _SIGNATURES = {
     "shafa_fsm32": [_P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _P, _P],
     "shafa_rle_encode_tile_bytes": [],
     "shafa_rle_encode": [_P, _P, _I, _L, _P, _P, _L, _P, _P, _P],
+    "shafa_decode_tables": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -20,6 +20,11 @@ byte's symbols into two packs clipped at the row's count, interleaved as
 (B, 2P) lanes (K6, csrc/fsm32.cu) -> K1's bits emission concatenates them
 into the decoded rows.
 
+Both routes take their tables from the batch's code tables on the card:
+the codes in rank order, their sym | len << 8 and the 12-bit table (K9,
+csrc/decode_tables.cu, decode_tables_on_device); decode_tables_batch,
+rank_tables(32) and rank_lut12(_32) are its plain version.
+
 The v4 chain, codes of at most 16 bits, which only the decode-stage
 benchmark runs (bench_decode_stages.py:141-183): K2 -> the 8- or 16-state
 machine writing its packs interleaved as K6 does (K7, csrc/fsm_decode.cu,
@@ -31,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import tracing
 from . import _build
 from .emit import emit_bits_rows, to_i32
 
@@ -182,6 +188,56 @@ def _lut12(pc: np.ndarray, valid: np.ndarray, ls, low_bits: int):
     ent = np.where(r_lo == r_hi, np.where(r_hi >= 0, code, 0),
                    LUT_RANGE | (depth << 8) | lo)
     return ent.astype(np.uint16).view(np.int16)
+
+
+def decode_tables_plain(lens: torch.Tensor, hi32: torch.Tensor,
+                        wide: bool) -> tuple:
+    """Plain version of decode_tables_on_device: decode_tables_batch, then
+    rank_tables32 and rank_lut12_32 if wide, else rank_tables and
+    rank_lut12, on the host."""
+    vals = hi32.cpu().numpy().view(np.uint32).astype(np.uint64) \
+        << np.uint64(32)
+    tab = decode_tables_batch(lens.cpu().numpy(), vals)
+    if wide:
+        pc32, ls, ncodes = rank_tables32(tab)
+        tabs = (pc32, ls, ncodes, rank_lut12_32(pc32, ls, ncodes))
+    else:
+        pc16, ls = rank_tables(tab)
+        tabs = (pc16, ls, rank_lut12(pc16, ls))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in tabs)
+
+
+def decode_tables_on_device(lens: torch.Tensor, hi32: torch.Tensor,
+                            wide: bool) -> tuple:
+    """A decode batch's code tables -> the tables of its rank kernel: (pc16,
+    ls, lut12) for K2 (codes of at most 16 bits), or (pc32, ls, ncodes,
+    lut) for K5 if wide (17-32 bits), as rank_tables(32) and
+    rank_lut12(_32) build them.
+
+    lens: (n, 256) uint8 code lengths (0 where a symbol is absent); hi32:
+    (n, 256) int32, the high 32 bits of the left-aligned codes
+    (codes.CodeTables.vals >> 32). Every row needs at least one code and
+    codes of at most 32 bits, or of at most 16 where not wide. On the card
+    K9 (csrc/decode_tables.cu) builds them, one launch a batch, and the
+    counter decode_table_rows_on_device counts its rows."""
+    if lens.device.type == "cpu":
+        return decode_tables_plain(lens, hi32, wide)
+    n = lens.shape[0]
+    dev = lens.device
+    lib = _build.library()
+    args = [_build.ptr(lens, torch.uint8, (n, 256), dev),
+            _build.ptr(hi32, torch.int32, (n, 256), dev)]
+    pc = torch.empty((n, 256), dtype=torch.int32, device=dev)
+    ls = torch.empty((n, 256), dtype=torch.int32, device=dev)
+    ncodes = torch.empty(n, dtype=torch.int32, device=dev) if wide else None
+    lut = torch.empty((n, lib.shafa_rank_lut_entries()), dtype=torch.int16,
+                      device=dev)
+    _build.launch("decode_tables", dev, "shafa_decode_tables", *args, n,
+                  int(wide), pc.data_ptr(), ls.data_ptr(),
+                  None if ncodes is None else ncodes.data_ptr(),
+                  lut.data_ptr())
+    tracing.count("decode_table_rows_on_device", n)
+    return (pc, ls, ncodes, lut) if wide else (pc, ls, lut)
 
 
 def windows32_bytes(payload: torch.Tensor) -> torch.Tensor:

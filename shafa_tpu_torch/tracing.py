@@ -21,9 +21,10 @@ allocates on the card. The names are ``shafa.<layer>.<step>``:
     card and the copy), ``.encode_batch``, ``.pack_batch``,
     ``.decode_batch`` (a batch of codes of at most 16 bits),
     ``.decode_batch32`` (17-32 bits);
-  * ``shafa.backend.tables``: one batch's code tables built on the host
-    and uploaded (the pack's packed sizes and K1's tables; a decode
-    batch's K2/K3 or K5/K6 tables);
+  * ``shafa.backend.tables``: one batch's tables made ready on the card
+    (the pack's packed sizes and K1's tables, built on the host and
+    uploaded; a decode batch's code lengths and codes uploaded and K9's
+    launch, which builds its K2 or K5 tables there);
   * ``shafa.dist.worker.<k>``: one call on a worker thread of
     ``dist.ShardedBackend``.
 
@@ -35,6 +36,9 @@ Counters. ``count(name, n)`` adds n to a counter under a lock, always on.
 ``decode_blocks16`` and ``decode_blocks32`` count the blocks that decode
 on the card through each route, ``host_decoded_blocks`` those decoded on
 the host; the three add up to the blocks a call decodes.
+``decode_table_rows_on_device`` counts the rows whose decode tables K9
+built on the card: there it equals ``decode_blocks16 + decode_blocks32``,
+and on the CPU, where the tables' plain version runs, it stays 0.
 ``cli.main`` calls ``reset()`` at its start, so ``counters()`` gives the
 last call's (``--json`` reports them under ``"counters"``).
 """
@@ -53,6 +57,7 @@ COUNTERS = (
     "encode_batches", "pack_batches", "decode_batches",
     "file_read_bytes", "file_written_bytes",
     "decode_blocks16", "decode_blocks32", "host_decoded_blocks",
+    "decode_table_rows_on_device",
 )
 
 _NOOP = contextlib.nullcontext()

@@ -5,10 +5,10 @@ blocks, codes of 17-20 bits) decodes every block through the 17-32-bit
 route (K5, K6, K1 bits, K4); ``mixed_m`` (-b m) through the route of at
 most 16 bits (K2, K3, K4). The sidecars equal the reference's, the restore
 is exact, and the decompress's ``--json`` counters name the route of every
-block.
+block and, on the card, count each block's tables built there (K9).
 
 On the CPU the kernels' plain versions run. The test marked ``gpu`` runs
-the text_K round trip on a CUDA card and skips without one (decided in the
+both round trips on a CUDA card and skips without one (decided in the
 ``cuda`` fixture): ``python -m pytest tests/test_torch_text_k.py``.
 """
 
@@ -72,6 +72,7 @@ def test_every_block_decodes_through_its_route(tmp_path, monkeypatch, name):
     for counter in DECODE_COUNTERS:
         expect = n_blocks if counter == ROUTE[name] else 0
         assert counters[counter] == expect, counter
+    assert counters["decode_table_rows_on_device"] == 0  # the plain tables
 
 
 @pytest.fixture
@@ -82,8 +83,12 @@ def cuda():
 
 
 @pytest.mark.gpu
-def test_text_K_round_trip_on_the_card(tmp_path, monkeypatch, cuda):
+@pytest.mark.parametrize("name", ["text_K", "mixed_m"])
+def test_round_trip_on_the_card(tmp_path, monkeypatch, cuda, name):
     monkeypatch.delenv("SHAFA_TORCH_DEVICE", raising=False)
-    want, counters = _round_trip(tmp_path, "text_K", cuda)
-    assert [counters[c] for c in DECODE_COUNTERS] == \
-        [0, len(want.max_code_len), 0]
+    want, counters = _round_trip(tmp_path, name, cuda)
+    n_blocks = len(want.max_code_len)
+    for counter in DECODE_COUNTERS:
+        assert counters[counter] == (n_blocks if counter == ROUTE[name]
+                                     else 0), counter
+    assert counters["decode_table_rows_on_device"] == n_blocks
