@@ -1104,6 +1104,14 @@ def recorded(module, *names):
             setattr(module, n, fn)
 
 
+def streamed_d(calls, algo: str) -> list:
+    """The reports of the streaming module D calls (recorded's
+    ``_module_d_streaming``) that decoded with algo: shafa_rle (a .rle.shaf
+    decoded and expanded) or rle (an .rle expanded)."""
+    return [r for r in calls["_module_d_streaming"]
+            if r.extra["algo"] == algo]
+
+
 @contextlib.contextmanager
 def captured(*targets):
     """Each (module, name) wrapped to keep a host copy of the arguments of
@@ -1172,8 +1180,7 @@ def streaming_path(work: str) -> dict:
     HOST_DECODED[0] = 0
     with refused(*plain_stages()), \
             recorded(pipeline, "compress_pipeline_streaming",
-                     "_module_d_shafa_streaming",
-                     "_module_d_rle_streaming") as calls, \
+                     "_module_d_streaming") as calls, \
             captured((rle, "rle_encode_hist"), (pack, "pack_batch"),
                      (decode, "decode_batch"),
                      (expand, "rle_expand_sizes")) as (args, arm):
@@ -1206,7 +1213,7 @@ def streaming_path(work: str) -> dict:
 
         os.remove(path)
         step("decompress", [path + ".rle.shaf"])
-        (rep_d,) = calls["_module_d_shafa_streaming"] or [None]
+        (rep_d,) = streamed_d(calls, "shafa_rle") or [None]
         if rep_d is None or not rep_d.extra.get("streaming"):
             fail("streaming: the decompress did not stream")
         if sha256(path) != want:
@@ -1215,7 +1222,7 @@ def streaming_path(work: str) -> dict:
             os.remove(f)
 
         step("rle_decode", [path + ".rle", "-m", "d"])
-        if len(calls["_module_d_rle_streaming"]) != 1:
+        if len(streamed_d(calls, "rle")) != 1:
             fail("streaming: the RLE-only decode of the .rle did not "
                  "stream")
         if sha256(path) != want:
@@ -1722,7 +1729,7 @@ def text_stream_path(work: str) -> dict:
     HOST_DECODED[0] = 0
     with refused(*plain_stages()), \
             recorded(pipeline, "compress_pipeline_streaming",
-                     "_module_d_shafa_streaming") as calls, \
+                     "_module_d_streaming") as calls, \
             captured((pack, "pack_batch"),
                      (decode, "decode_batch32")) as (args, arm):
         for step, argv, threshold in (
@@ -1744,7 +1751,7 @@ def text_stream_path(work: str) -> dict:
                 launches[k] = launches.get(k, 0) + n
         arm(None)
     (rep,) = calls["compress_pipeline_streaming"] or [None]
-    (rep_d,) = calls["_module_d_shafa_streaming"] or [None]
+    (rep_d,) = streamed_d(calls, "shafa_rle") or [None]
     if rep is None or not rep[0].extra.get("streaming") \
             or not rep[0].extra["compress_rle"]:
         fail("text -b M: the compress did not stream in the R mode")

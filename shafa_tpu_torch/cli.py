@@ -24,7 +24,8 @@ Several devices and several processes (shafa_tpu/cli.py:203-209, 215-284):
   * with COORDINATOR_ADDRESS (host:port), NUM_PROCESSES and PROCESS_ID set,
     or SHAFA_MULTIHOST=1 under torchrun, the process joins a gloo process
     group (multihost.init_from_env) and the full compress chain and the
-    .shaf decompress run through multihost.py, each process on a contiguous
+    .shaf decompress run through pipeline.compress_multihost and
+    pipeline.decompress_multihost, each process on a contiguous
     range of the blocks and on its own visible devices. A join that fails
     exits 1; nothing goes on as a single process.
 
@@ -274,7 +275,7 @@ def profiler(device_type: str, **kwargs):
 
 def _execute_multihost(opts, path: str, backend) -> int | None:
     """The multi-host branch of shafa_tpu/cli.py:215-284: the full
-    compress chain and the .shaf decompress through multihost.py. Every
+    compress chain and the .shaf decompress across the processes. Every
     process waits at a barrier for the others' writes before process 0
     reports. None for other module combinations, which run the one-process
     path on every process (the same files, written by each)."""
@@ -284,7 +285,7 @@ def _execute_multihost(opts, path: str, backend) -> int | None:
     if opts.module_f and opts.module_t and opts.module_c \
             and not opts.module_d:
         try:
-            out = multihost.compress_multihost(
+            out = pipeline.compress_multihost(
                 path, opts.block_size, backend, comm,
                 force_rle=opts.f_force_rle, force_freq=opts.f_force_freq)
         except ShafaError as e:
@@ -297,7 +298,7 @@ def _execute_multihost(opts, path: str, backend) -> int | None:
             and formats.check_ext(path, formats.SHAFA_EXT) \
             and not opts.d_rle:
         try:
-            out = multihost.decompress_multihost(path, backend, comm)
+            out = pipeline.decompress_multihost(path, backend, comm)
         except ShafaError as e:
             print("Module d: Something went wrong while decompressing...",
                   file=sys.stderr)

@@ -164,6 +164,22 @@ class CodeTables:
         return cls(lens, vals, overflow)
 
 
+def take_rows(tables, lo, hi: int | None = None) -> CodeTables:
+    """Rows [lo, hi) of a CodeTables, or, with hi left out, the rows of the
+    index array lo in its order, with the overflow rows renumbered. A
+    function, not a method: the backend takes any tables with lens, vals
+    and overflow (the JAX package's CodeTables among them)."""
+    rows = slice(lo, hi) if hi is not None else np.asarray(lo, np.intp)
+    out = CodeTables(tables.lens[rows], tables.vals[rows])
+    if tables.overflow:
+        idx = range(len(tables.lens))[rows] if hi is not None \
+            else rows.tolist()
+        new = {int(i): j for j, i in enumerate(idx)}
+        out.overflow = {new[i]: v for i, v in tables.overflow.items()
+                        if i in new}
+    return out
+
+
 def build_code_tables(freqs: np.ndarray) -> CodeTables:
     """Batched module T: (n, 256) histograms -> CodeTables.
 

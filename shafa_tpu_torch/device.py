@@ -54,7 +54,6 @@ from .kernels import expand as kexpand
 from .kernels import histogram as khist
 from .kernels import pack as kpack
 from .kernels import rle as krle
-from .pipeline import host_unpack
 
 #: Max elements per (B, P) batch (shafa_tpu/device.py:48).
 MAX_BATCH_ELEMS = 1 << 26
@@ -81,6 +80,21 @@ def _bucket(n: int, minimum: int = 256) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def batch_rows(width: int, factor: int = 1, minimum: int = 256) -> int:
+    """Rows of a device batch whose widest row has width bytes:
+    MAX_BATCH_ELEMS, read at call time, over the width's power-of-two
+    bucket (at least minimum) times factor: 1 for blocks, 2 for a decode
+    batch's payloads, 8 for a streaming decode's blocks (their decoded
+    rows bound its width)."""
+    return max(1, MAX_BATCH_ELEMS // (_bucket(width, minimum) * factor))
+
+
+def batch_ranges(n: int, rows: int, lo: int = 0) -> list[tuple[int, int]]:
+    """Items [lo, n) cut into ranges [a, b) of rows items, the last one
+    shorter where they do not divide."""
+    return [(a, min(a + rows, n)) for a in range(lo, n, rows)]
 
 
 def _kraft_complete(lens: np.ndarray) -> np.ndarray:
@@ -337,8 +351,13 @@ class TorchBackend:
             else default_device()
         self.sequential = bool(sequential)
 
-    def _bsz(self, p: int) -> int:
-        return 1 if self.sequential else max(1, MAX_BATCH_ELEMS // max(p, 1))
+    def _batches(self, widths, factor: int = 1, minimum: int = 256):
+        """Rows of these widths in device batches: the batches' width P
+        (the widest row's bucket) and their [lo, hi) ranges, of batch_rows
+        rows each (one if sequential)."""
+        p = _bucket(max(widths), minimum)
+        rows = 1 if self.sequential else batch_rows(p, factor, minimum)
+        return p, batch_ranges(len(widths), rows)
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return _upload(a, self.device)
@@ -359,11 +378,10 @@ class TorchBackend:
     def histogram(self, blocks):
         if not blocks:
             return []
-        p = _bucket(max(b.size for b in blocks))
-        bsz = self._bsz(p)
+        p, batches = self._batches([b.size for b in blocks])
         out = []
-        for lo in range(0, len(blocks), bsz):
-            x, _, ld = _upload_rows(blocks[lo:lo + bsz], p, self.device)
+        for lo, hi in batches:
+            x, _, ld = _upload_rows(blocks[lo:hi], p, self.device)
             out.extend(_download(khist.histogram_batch(x, ld)))
         return out
 
@@ -379,20 +397,17 @@ class TorchBackend:
                 fast.append(i)
         if not fast:
             return results
-        p = _bucket(max(blocks[i].size for i in fast))
-        bsz = self._bsz(p)
-        for lo in range(0, len(fast), bsz):
+        p, batches = self._batches([blocks[i].size for i in fast])
+        for lo, hi in batches:
             with tracing.span("shafa.backend.pack_batch"):
                 tracing.count("pack_batches")
-                idx = fast[lo:lo + bsz]
+                idx = fast[lo:hi]
                 x, _, ld = _upload_rows([blocks[i] for i in idx], p,
                                         self.device)
                 hist = (_download(khist.histogram_batch(x, ld))
                         if hists is None else np.asarray(hists)[idx])
-                sub = codes_mod.CodeTables(tables.lens[idx],
-                                           tables.vals[idx])
-                for i, payload in zip(idx, self._pack_rows(x, ld, hist,
-                                                           sub)):
+                for i, payload in zip(idx, self._pack_rows(
+                        x, ld, hist, codes_mod.take_rows(tables, idx))):
                     results[i] = payload
         return results
 
@@ -402,13 +417,11 @@ class TorchBackend:
     def rle_expand(self, blocks):
         if not blocks:
             return []
-        p = _bucket(max(b.size for b in blocks))
+        p, batches = self._batches([b.size for b in blocks])
         out = []
-        bsz = self._bsz(p)
-        for lo in range(0, len(blocks), bsz):
-            rows = blocks[lo:lo + bsz]
-            x, _, ld = _upload_rows(rows, p, self.device)
-            out.extend(self._expand_rows(x, ld, len(rows)))
+        for lo, hi in batches:
+            x, _, ld = _upload_rows(blocks[lo:hi], p, self.device)
+            out.extend(self._expand_rows(x, ld, hi - lo))
         return out
 
     # -- shared pieces --------------------------------------------------------
@@ -475,11 +488,9 @@ class TorchBackend:
         h = _EncodeHandle()
         if not blocks:
             return h
-        p = _bucket(max(b.size for b in blocks))
-        bsz = self._bsz(p)
-        for lo in range(0, len(blocks), bsz):
-            rows = blocks[lo:lo + bsz]
-            x, lens, ld = _upload_rows(rows, p, self.device)
+        p, batches = self._batches([b.size for b in blocks])
+        for lo, hi in batches:
+            x, lens, ld = _upload_rows(blocks[lo:hi], p, self.device)
             h.batches.append(dict(x=x, lens=lens, lens_dev=ld))
         return h
 
@@ -568,12 +579,11 @@ class TorchBackend:
                                            lambda i=i: host_row(i),
                                            src_len[j], results):
                         src_len[j] = 0  # mask out of the kernel pass
-                sub = codes_mod.CodeTables(tables.lens[base:base + n],
-                                           tables.vals[base:base + n])
                 hist = (_download(b["hist"]) if use_rle
                         else b["raw_hist"]).copy()
                 hist[src_len == 0] = 0  # oracle-routed rows
-                yield base, (src, self._upload(src_len), hist, sub)
+                yield base, (src, self._upload(src_len), hist,
+                             codes_mod.take_rows(tables, base, base + n))
             base += n
 
     def fused_decode(self, payloads, tables, out_counts,
@@ -593,8 +603,8 @@ class TorchBackend:
         for i in range(n_total):
             if i in tables.overflow or maxlen[i] > 32 or n_codes[i] == 0:
                 on_host += 1
-                dec = host_unpack(payloads[i], tables.row_strings(i),
-                                  out_counts[i])
+                dec = oracle.host_unpack(payloads[i],
+                                         tables.row_strings(i), out_counts[i])
                 results[i] = oracle.rle_expand(dec) if expand else dec
             elif not complete[i]:  # foreign .cod with gaps: trie semantics
                 on_host += 1
@@ -624,22 +634,21 @@ class TorchBackend:
         the upload of its code tables and the launch that builds its
         kernels' tables from them on the card (K9)."""
         blocks = [np.frombuffer(payloads[i], np.uint8) for i in group]
-        p = _bucket(max(b.size for b in blocks), minimum=1024)
-        bsz = self._bsz(p * 2)
+        p, batches = self._batches([b.size for b in blocks], 2, 1024)
         counts_all = np.array([out_counts[i] for i in group], np.int32)
         out_p = _bucket(int(counts_all.max()))
         span = ("shafa.backend.decode_batch32" if wide
                 else "shafa.backend.decode_batch")
         routed = "decode_blocks32" if wide else "decode_blocks16"
-        for lo in range(0, len(group), bsz):
+        for lo, hi in batches:
             with tracing.span(span):
                 tracing.count("decode_batches")
-                sel = group[lo:lo + bsz]
+                sel = group[lo:hi]
                 tracing.count(routed, len(sel))
-                payload, _, plens = _upload_rows(blocks[lo:lo + bsz], p,
+                payload, _, plens = _upload_rows(blocks[lo:hi], p,
                                                  self.device)
-                counts = counts_all[lo:lo + len(sel)]
-                sub = codes_mod.CodeTables(tables.lens[sel], tables.vals[sel])
+                counts = counts_all[lo:hi]
+                sub = codes_mod.take_rows(tables, sel)
                 with tracing.span("shafa.backend.tables"):
                     tabs = decode_tables_to_device(sub, self.device, wide)
                 s_states = (32 if wide else

@@ -32,9 +32,9 @@ import concurrent.futures as cf
 import numpy as np
 import torch
 
+from . import codes as codes_mod
 from . import tracing
 from .device import TorchBackend, default_device
-from .pipeline import _sub_tables
 
 
 def block_devices(devices=None) -> list[torch.device]:
@@ -132,12 +132,12 @@ class ShardedBackend:
 
     def pack(self, blocks, tables, hists=None):
         return self._joined(self._split(len(blocks), lambda be, lo, hi: (
-            be.pack(blocks[lo:hi], _sub_tables(tables, lo, hi),
+            be.pack(blocks[lo:hi], codes_mod.take_rows(tables, lo, hi),
                     None if hists is None else hists[lo:hi]))))
 
     def unpack(self, payloads, tables, out_counts):
         return self._joined(self._split(len(payloads), lambda be, lo, hi: (
-            be.unpack(payloads[lo:hi], _sub_tables(tables, lo, hi),
+            be.unpack(payloads[lo:hi], codes_mod.take_rows(tables, lo, hi),
                       out_counts[lo:hi]))))
 
     def rle_expand(self, blocks):
@@ -184,11 +184,12 @@ class ShardedBackend:
     def fused_pack(self, h, tables, use_rle: bool,
                    host_row) -> list[bytes | memoryview]:
         return self._joined(self._per_part(h, lambda be, lo, hi, sub: (
-            be.fused_pack(sub, _sub_tables(tables, lo, hi), use_rle,
-                          lambda j: host_row(lo + j)))))
+            be.fused_pack(sub, codes_mod.take_rows(tables, lo, hi),
+                          use_rle, lambda j: host_row(lo + j)))))
 
     def fused_decode(self, payloads, tables, out_counts,
                      expand: bool) -> list[np.ndarray]:
         return self._joined(self._split(len(payloads), lambda be, lo, hi: (
-            be.fused_decode(payloads[lo:hi], _sub_tables(tables, lo, hi),
+            be.fused_decode(payloads[lo:hi],
+                            codes_mod.take_rows(tables, lo, hi),
                             out_counts[lo:hi], expand))))

@@ -1,15 +1,19 @@
-"""Multi-host runs: the port of shafa_tpu/multihost.py over torch.distributed.
+"""Multi-host runs: the process layer of the port of shafa_tpu/multihost.py,
+over torch.distributed.
 
 As in the original (multihost.py:1-24): every process runs the same code
-on a contiguous range of the blocks, reads only its byte range of the
-input, encodes it on its own devices (the backend that cli._make_backend
-built: one device, or dist.ShardedBackend over the visible ones), and
-pwrites its shard of .rle/.shaf at an offset computed from all-gathered
-sizes into a file on a shared file system; process 0 writes the ASCII
-sidecars (.freq/.cod) and the .shaf header. The only exchanges between
-processes are KB-scale host metadata (per-block sizes and 256-bin
-histograms), gathered over gloo with CPU tensors: ranks that share one GPU
-cannot use NCCL, and the data never needs the device.
+on a contiguous range of the blocks (``partition_blocks``), reads only its
+byte range of the input, encodes it on its own devices (the backend that
+cli._make_backend built: one device, or dist.ShardedBackend over the
+visible ones), and pwrites its shard of .rle/.shaf at an offset computed
+from all-gathered sizes into a file on a shared file system; process 0
+writes the ASCII sidecars (.freq/.cod) and the .shaf header. The drivers
+are pipeline.compress_multihost and pipeline.decompress_multihost, which
+run the pipeline's own steps; this module gives them the process group,
+the exchanges and the positional IO. The only exchanges between processes
+are KB-scale host metadata (per-block sizes and 256-bin histograms),
+gathered over gloo with CPU tensors: ranks that share one GPU cannot use
+NCCL, and the data never needs the device.
 
 The processes join through ``init_from_env`` (torch.distributed instead of
 jax.distributed). A join that fails raises: a run asked to be multi-host
@@ -22,17 +26,12 @@ import dataclasses
 import datetime
 import os
 import re
-import tempfile
 
 import numpy as np
 import torch
 import torch.distributed as tdist
 
-from . import codes as codes_mod
-from . import formats, geometry
-from .errors import (FileInaccessibleError, FileTooSmallError,
-                     FileUnrecognizableError)
-from .pipeline import _sub_tables
+from .errors import FileUnrecognizableError
 
 #: Seconds a process waits for the others to join (SHAFA_JOIN_TIMEOUT);
 #: jax.distributed.initialize's default initialization_timeout.
@@ -178,7 +177,7 @@ def shaf_offsets(payload_sizes: np.ndarray) -> tuple[np.ndarray, int]:
     return offs, int(header + frame_sizes.sum())
 
 
-def _splice_spool(spool, dst_path: str, dst_off: int, total: int) -> None:
+def splice_spool(spool, dst_path: str, dst_off: int, total: int) -> None:
     """Copy a local spool file into the shared output at dst_off in bounded
     chunks (shafa_tpu/multihost.py:160)."""
     spool.seek(0)
@@ -193,134 +192,6 @@ def _splice_spool(spool, dst_path: str, dst_off: int, total: int) -> None:
             dst_off += len(chunk)
     finally:
         os.close(fd)
-
-
-def _host_batches(rng: BlockRange, block_size: int):
-    """This host's block range cut into device-batch-sized index ranges
-    (shafa_tpu/multihost.py:177), from device.MAX_BATCH_ELEMS at call
-    time."""
-    from . import device
-    p = device._bucket(block_size)
-    bsz = max(1, device.MAX_BATCH_ELEMS // p)
-    return [(lo, min(lo + bsz, rng.hi)) for lo in range(rng.lo, rng.hi, bsz)]
-
-
-def compress_multihost(path: str, block_size: int, backend,
-                       comm: Comm | None = None,
-                       force_rle: bool = False,
-                       force_freq: bool = False) -> str:
-    """Modules F+T+C across hosts (shafa_tpu/multihost.py:185): output files
-    byte-identical to the single-host pipeline's. Each host streams its
-    block range one device batch at a time into local spool files and
-    splices them at the gathered offsets afterwards.
-
-    The per-host RLE histograms are kept as int32 (a 64 MiB block's counts
-    fit) and widened after the gather, so .freq and .cod are unchanged."""
-    comm = comm or Comm()
-    pi, pc = comm.index, comm.count
-
-    if not os.path.isfile(path):
-        raise FileInaccessibleError(path)
-    geo = geometry.geometry_for_file(path, block_size)
-    if geo.total < geometry.MIN_FILE_SIZE:
-        raise FileTooSmallError(path)
-    sizes = geo.sizes()
-    rng = partition_blocks(geo.n_blocks, pc, pi)
-    batches = _host_batches(rng, block_size)
-    spool_dir = os.path.dirname(path) or "."
-
-    # --- pass F: stream batches; spool RLE bytes, keep KB-scale metadata ---
-    my_rle_sizes = np.zeros(rng.n, np.int64)
-    my_rle_hists = np.zeros((rng.n, 256), np.int32)
-    rle_spool = tempfile.TemporaryFile(dir=spool_dir)
-    with open(path, "rb") as fp:
-        for lo, hi in batches:
-            blocks = _read_blocks_at(fp, sizes, lo, hi)
-            h = backend.fused_encode(blocks)
-            my_rle_sizes[lo - rng.lo: hi - rng.lo] = \
-                backend.fused_rle_sizes(h)
-            my_rle_hists[lo - rng.lo: hi - rng.lo] = \
-                backend.fused_rle_hists(h)
-            rle_spool.write(backend.fused_rle_bytes(h).tobytes())
-            del h  # free the batch's device tensors (bounded memory)
-
-    rle_sizes = comm.allgather(my_rle_sizes)
-    # Gate from global block 0 (f.c:250-257), the same on every host.
-    ratio = (sizes[0] - int(rle_sizes[0])) / sizes[0]
-    compress_rle = force_rle or ratio >= 0.05
-
-    path_rle = formats.add_ext(path, formats.RLE_EXT)
-    if compress_rle:
-        rle_offs = np.concatenate(([0], np.cumsum(rle_sizes)))
-        _splice_spool(rle_spool, path_rle, int(rle_offs[rng.lo]),
-                      int(rle_offs[-1]))
-        freqs = comm.allgather(my_rle_hists).astype(np.int64)
-        stream_sizes = rle_sizes
-        mode = "R"
-        if pi == 0:
-            with open(formats.add_ext(path_rle, formats.FREQ_EXT),
-                      "wb") as fp:
-                formats.write_freq_arrays(fp, "R", rle_sizes, freqs)
-    rle_spool.close()
-    if force_freq or not compress_rle:
-        # Raw histograms: a second streaming pass (f.c:278-334).
-        my_nfreqs = np.zeros((rng.n, 256), np.int64)
-        with open(path, "rb") as fp:
-            for lo, hi in batches:
-                blocks = _read_blocks_at(fp, sizes, lo, hi)
-                my_nfreqs[lo - rng.lo: hi - rng.lo] = \
-                    np.stack(backend.histogram(blocks))
-        nfreqs = comm.allgather(my_nfreqs)
-        if pi == 0:
-            with open(formats.add_ext(path, formats.FREQ_EXT), "wb") as fp:
-                formats.write_freq_arrays(fp, "N", sizes, nfreqs)
-        if not compress_rle:
-            mode, stream_sizes, freqs = "N", np.asarray(sizes), nfreqs
-
-    # Module T: identical tables on every host from the gathered histograms.
-    tables = codes_mod.build_code_tables(freqs)
-    data_path = path_rle if compress_rle else path
-    if pi == 0:
-        with open(formats.add_ext(data_path, formats.CODES_EXT), "wb") as fp:
-            formats.write_cod_tables(fp, mode,
-                                     [int(s) for s in stream_sizes], tables)
-
-    # --- pass C: stream the data stream batch-wise, pack, spool frames ----
-    stream_np = np.asarray(stream_sizes, np.int64)
-    my_psizes = np.zeros(rng.n, np.int64)
-    shaf_spool = tempfile.TemporaryFile(dir=spool_dir)
-    with open(data_path, "rb") as fp:
-        for lo, hi in batches:
-            blocks = _read_blocks_at(fp, stream_np, lo, hi)
-            payloads = backend.pack(blocks, _sub_tables(tables, lo, hi),
-                                    freqs[lo:hi])
-            for j, pay in enumerate(payloads):
-                my_psizes[lo - rng.lo + j] = len(pay)
-                shaf_spool.write(shaf_frame(pay))
-
-    psizes = comm.allgather(my_psizes)
-    offs, total = shaf_offsets(psizes)
-    path_shafa = formats.add_ext(data_path, formats.SHAFA_EXT)
-    if pi == 0:
-        write_at(path_shafa, 0, f"@{geo.n_blocks}".encode("ascii"),
-                 total_size=total)
-    if rng.n:
-        _splice_spool(shaf_spool, path_shafa, int(offs[rng.lo]), total)
-    shaf_spool.close()
-    return path_shafa
-
-
-def _read_blocks_at(fp, sizes, lo: int, hi: int) -> list[np.ndarray]:
-    """Blocks [lo, hi) of an open stream whose block sizes are `sizes` (one
-    contiguous read). Copy of shafa_tpu/multihost.py:305."""
-    start = int(np.sum(np.asarray(sizes[:lo], np.int64)))
-    fp.seek(start)
-    buf = fp.read(int(np.sum(np.asarray(sizes[lo:hi], np.int64))))
-    out, pos = [], 0
-    for s in sizes[lo:hi]:
-        out.append(np.frombuffer(buf, np.uint8, count=int(s), offset=pos))
-        pos += int(s)
-    return out
 
 
 #: chunk size for the buffered .shaf header scan
@@ -357,58 +228,3 @@ def scan_shaf_offsets(path: str) -> tuple[np.ndarray, np.ndarray, int]:
             offs[i] = base + m.end()
             pos = int(offs[i] + sizes[i])
     return offs, sizes, n_blocks
-
-
-def decompress_multihost(path: str, backend,
-                         comm: Comm | None = None) -> str:
-    """Module D across hosts (shafa_tpu/multihost.py:363): each host scans
-    the frame headers, reads only its contiguous payload range, decodes it
-    batch-wise into a local spool file and splices the spool into the
-    shared output at the offset the gathered decoded sizes give."""
-    from . import device
-
-    comm = comm or Comm()
-    pi, pc = comm.index, comm.count
-
-    path_tmp = formats.rm_ext(path)  # strip .shaf
-    rle = formats.check_ext(path_tmp, formats.RLE_EXT)
-    path_wrt = formats.rm_ext(path_tmp) if rle else path_tmp
-    with open(formats.add_ext(path_tmp, formats.CODES_EXT), "rb") as fp:
-        mode, block_sizes, tables = formats.parse_cod_tables(fp.read())
-    frame_offs, frame_sizes, n_blocks = scan_shaf_offsets(path)
-    if n_blocks != len(block_sizes):
-        raise FileUnrecognizableError("block count mismatch .shaf vs .cod")
-
-    rng = partition_blocks(n_blocks, pc, pi)
-    expand = rle and mode == "R"
-    # batch granularity like the fused decoder's
-    p = device._bucket(max(block_sizes) if block_sizes else 1)
-    bsz = max(1, device.MAX_BATCH_ELEMS // (p * 8))
-
-    my_sizes = np.zeros(rng.n, np.int64)
-    spool = tempfile.TemporaryFile(dir=os.path.dirname(path) or ".")
-    try:
-        with open(path, "rb") as fp:
-            for lo in range(rng.lo, rng.hi, bsz):
-                hi = min(lo + bsz, rng.hi)
-                fp.seek(frame_offs[lo])
-                buf = fp.read(int(frame_offs[hi - 1] + frame_sizes[hi - 1]
-                                  - frame_offs[lo]))
-                base = frame_offs[lo]
-                payloads = [
-                    buf[int(frame_offs[i] - base):
-                        int(frame_offs[i] - base + frame_sizes[i])]
-                    for i in range(lo, hi)]
-                out_blocks = backend.fused_decode(
-                    payloads, _sub_tables(tables, lo, hi),
-                    block_sizes[lo:hi], expand=expand)
-                for j, b in enumerate(out_blocks):
-                    my_sizes[lo - rng.lo + j] = b.size
-                    spool.write(b.tobytes())
-
-        out_sizes = comm.allgather(my_sizes)
-        offs = np.concatenate(([0], np.cumsum(out_sizes)))
-        _splice_spool(spool, path_wrt, int(offs[rng.lo]), int(offs[-1]))
-    finally:
-        spool.close()
-    return path_wrt

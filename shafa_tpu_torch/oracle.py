@@ -29,6 +29,8 @@ from typing import Sequence
 
 import numpy as np
 
+from .errors import FileUnrecognizableError
+
 NUM_SYMBOLS = 256
 RLE_MAX_RUN = 255
 RLE_MIN_RUN = 4
@@ -254,3 +256,13 @@ def unpack(payload: bytes, codes: Sequence[str], out_count: int) -> np.ndarray:
     if pos.size < out_count or pos.max(initial=0) >= nbits:
         raise ValueError("compressed stream exhausted early")
     return sym[pos].astype(np.uint8)
+
+
+def host_unpack(payload, code_strings, out_count) -> np.ndarray:
+    """unpack, its ValueError on a bad archive (no codes, a stream
+    exhausted early) raised as FileUnrecognizableError, so that the CLI
+    ends with "File not recognized" as on the kernel route."""
+    try:
+        return unpack(payload, code_strings, out_count)
+    except ValueError as e:
+        raise FileUnrecognizableError(str(e)) from e

@@ -10,18 +10,28 @@ Compute is delegated to a backend (the NumPy oracle, or TorchBackend in
 device.py) that operates on LISTS of blocks, so the device backend can batch
 blocks into padded device tensors.
 
-Inputs above STREAM_THRESHOLD take the streaming pipelines, as in the
-original: one device batch at a time, disk reads and writes overlapped with
-the device work by a read-ahead and a write-behind thread that do file IO
-only (every backend call stays on the calling thread), and a compress that
-resumes after the last batch written durably.
+The drivers differ only in where the streams live: on the card for the
+whole file (``compress_pipeline``, ``module_d_shafa``), one device batch at
+a time (inputs above STREAM_THRESHOLD, as in the original), module by
+module (``module_f`` -> ``module_t`` -> ``module_c``), or one block range
+per process (``compress_multihost``, ``decompress_multihost``, over
+multihost.py's process group). Each step they share is written once here:
+the RLE gate (``_rle_gate``), the .freq sidecars (``_freq_step``), module T
+(``_t_step``), the block reader (``_read_blocks``), the writers
+(``_write_file``, ``_write_rows``, ``_write_shaf``), the stage's span and
+error tag (``_stage``), and the streaming loop (``_stream``): a read-ahead
+and a write-behind thread that do file IO only (every backend call stays
+on the calling thread), around a compress that resumes after the last
+batch written durably. Device batches are cut by device.batch_rows.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import contextlib
 import dataclasses
 import os
+import tempfile
 import time
 import zipfile
 from typing import Protocol, Sequence
@@ -222,16 +232,6 @@ class CheckedBackend:
             want)
 
 
-def host_unpack(payload, code_strings, out_count) -> np.ndarray:
-    """oracle.unpack, its ValueError on a bad archive (no codes, a stream
-    exhausted early) raised as FileUnrecognizableError, so that the CLI
-    ends with "File not recognized" as on the kernel route."""
-    try:
-        return oracle.unpack(payload, code_strings, out_count)
-    except ValueError as e:
-        raise FileUnrecognizableError(str(e)) from e
-
-
 class NumpyBackend:
     """Host backend / differential baseline; exact per oracle.py."""
 
@@ -252,7 +252,7 @@ class NumpyBackend:
         return out
 
     def unpack(self, payloads, tables, out_counts):
-        return [host_unpack(p, tables.row_strings(i), n)
+        return [oracle.host_unpack(p, tables.row_strings(i), n)
                 for i, (p, n) in enumerate(zip(payloads, out_counts))]
 
     def rle_expand(self, blocks):
@@ -270,17 +270,40 @@ class StageReport:
     extra: dict = dataclasses.field(default_factory=dict)
 
 
-def _read_blocks(path: str, sizes: Sequence[int],
-                 kind: str) -> list[np.ndarray]:
-    """The blocks of a data stream (kind: input or rle), one read each."""
+def _report(module: str, t0: float, sizes_before, sizes_after,
+            generated: list[str], **extra) -> StageReport:
+    """A stage's report, one size a block, its runtime from t0 to now."""
+    return StageReport(module, len(sizes_before), sizes_before, sizes_after,
+                       (time.perf_counter() - t0) * 1e3, generated, extra)
+
+
+@contextlib.contextmanager
+def _stage(name: str):
+    """Module name's span (``shafa.pipeline.<name>``); a ShafaError raised
+    in it carries ``stage`` = name, from which the CLI prints the
+    reference's per-module diagnostic (shafa.c:159-199). Also a decorator."""
+    with tracing.span(f"shafa.pipeline.{name}"):
+        try:
+            yield
+        except ShafaError as e:
+            e.stage = name
+            raise
+
+
+def _read_blocks(fp, sizes: Sequence[int], lo: int = 0,
+                 hi: int | None = None) -> list[np.ndarray]:
+    """Blocks [lo, hi) (all by default) of an open data stream whose blocks
+    have these sizes, one read a block; a short read raises
+    FileUnrecognizableError. The caller's ``shafa.io.read.<kind>`` span
+    covers it (in the streaming loop, its reader's)."""
+    fp.seek(sum(sizes[:lo]))
     out = []
-    with tracing.span(f"shafa.io.read.{kind}"), open(path, "rb") as fp:
-        for s in sizes:
-            buf = fp.read(s)
-            if len(buf) != s:
-                raise FileUnrecognizableError(f"{path}: truncated block")
-            out.append(np.frombuffer(buf, np.uint8))
-    tracing.count("file_read_bytes", sum(sizes))
+    for s in sizes[lo:hi]:
+        buf = fp.read(s)
+        if len(buf) != s:
+            raise FileUnrecognizableError(f"{fp.name}: truncated block")
+        out.append(np.frombuffer(buf, np.uint8))
+    tracing.count("file_read_bytes", sum(sizes[lo:hi]))
     return out
 
 
@@ -295,6 +318,27 @@ def _open_read(path: str, kind: str) -> bytes:
     return data
 
 
+def _write_file(path: str, kind: str, write, *args) -> None:
+    """write(fp, *args) into path, whole or not at all (_AtomicFile), in
+    the span ``shafa.io.write.<kind>``."""
+    with tracing.span(f"shafa.io.write.{kind}"), _AtomicFile(path) as fp:
+        write(fp, *args)
+
+
+def _write_rows(fp, rows) -> None:
+    """uint8 rows back to back: a .rle, a restored file."""
+    for r in rows:
+        fp.write(r.tobytes())
+
+
+def _write_shaf(fp, payloads, n_blocks: int | None = None) -> None:
+    """.shaf frames, after the archive's header where n_blocks is given."""
+    if n_blocks is not None:
+        formats.write_shaf_header(fp, n_blocks)
+    for p in payloads:
+        formats.write_shaf_block(fp, p)
+
+
 def _data_kind(path: str) -> str:
     """The io span kind of a data stream: rle or input."""
     return "rle" if formats.check_ext(path, formats.RLE_EXT) else "input"
@@ -304,60 +348,114 @@ def _over_stream_threshold(path: str) -> bool:
     return os.path.isfile(path) and os.path.getsize(path) > STREAM_THRESHOLD
 
 
-# ---------------------------------------------------------------------------
-# Module F: RLE compression + frequency histograms (f.c:180-412)
-# ---------------------------------------------------------------------------
-
-@tracing.spanned("shafa.pipeline.f")
-def module_f(path: str, force_rle: bool, force_freq: bool, block_size: int,
-             backend: Backend) -> tuple[str, StageReport]:
-    t0 = time.perf_counter()
+def _input_geometry(path: str, block_size: int) -> geometry.BlockGeometry:
+    """Module F's input, checked as f.c:205-221 does, as blocks."""
     if not os.path.isfile(path):
         raise FileInaccessibleError(path)
     geo = geometry.geometry_for_file(path, block_size)
     if geo.total < geometry.MIN_FILE_SIZE:
         raise FileTooSmallError(path)
-    sizes = geo.sizes()
-    blocks = _read_blocks(path, sizes, "input")
+    return geo
 
-    # Gate decision from block 0 only (f.c:250-257).
-    rle0 = backend.rle_encode(blocks[:1])[0]
-    ratio = (sizes[0] - rle0.size) / sizes[0]
-    compress_rle = force_rle or ratio >= RLE_GATE_RATIO
 
-    generated: list[str] = []
-    rle_sizes: list[int] = []
+def _batches(n: int, width: int, factor: int = 1, lo: int = 0):
+    """Blocks [lo, n) in device batches (device.batch_rows) of rows of at
+    most width bytes: factor 1 to encode, 8 for a streaming decode, whose
+    decoded rows bound the batch's width."""
+    from . import device  # torch only where a device backend runs
+    return device.batch_ranges(n, device.batch_rows(width, factor), lo)
+
+
+# ---------------------------------------------------------------------------
+# The steps of modules F and T (f.c:180-412, t.c:246-445)
+# ---------------------------------------------------------------------------
+
+def _rle_gate(size0: int, rle_size0: int, force_rle: bool) -> bool:
+    """Whether module F keeps the RLE stream (f.c:250-257): -c r, or block
+    0's RLE stream at least RLE_GATE_RATIO smaller than block 0. Every block
+    follows block 0's decision."""
+    return force_rle or (size0 - rle_size0) / size0 >= RLE_GATE_RATIO
+
+
+@dataclasses.dataclass
+class _DataStream:
+    """The data stream modules T and C take, as module F leaves it: its
+    path (the .rle, or the input), mode (R or N), block sizes and their
+    (n, 256) histograms."""
+    path: str
+    mode: str
+    sizes: list[int]
+    freqs: np.ndarray
+
+
+def _freq_step(path: str, compress_rle: bool, force_freq: bool, sizes,
+               rle_sizes, rle_hists, raw_hists, write: bool = True
+               ) -> tuple[_DataStream, list[str]]:
+    """Module F's .freq sidecars: R, of the RLE streams, where the gate kept
+    them, and N, of the input's blocks, where -c f asks or the gate did not.
+    rle_hists() and raw_hists() give their histograms, each called only for
+    its file, R first. With write=False nothing is written (the multi-host
+    processes but 0). Returns the stream for T and C, and the files
+    generated, the .rle among them."""
     path_rle = formats.add_ext(path, formats.RLE_EXT)
+    sidecars = []
+    if compress_rle:
+        sidecars.append(("R", path_rle, rle_sizes, rle_hists))
+    if force_freq or not compress_rle:
+        sidecars.append(("N", path, sizes, raw_hists))
+    stream, generated = None, []
+    for mode, data_path, stream_sizes, hists in sidecars:
+        freqs = hists()
+        path_freq = formats.add_ext(data_path, formats.FREQ_EXT)
+        if write:
+            _write_file(path_freq, "freq", formats.write_freq_arrays, mode,
+                        stream_sizes, freqs)
+        generated += [path_rle, path_freq] if mode == "R" else [path_freq]
+        stream = stream or _DataStream(
+            data_path, mode, [int(s) for s in stream_sizes], freqs)
+    return stream, generated
+
+
+def _t_step(stream: _DataStream, t0: float, write: bool = True
+            ) -> tuple[codes_mod.CodeTables, StageReport]:
+    """Module T on the stream's histograms: its code tables, its .cod
+    (where write) and the stage's report, timed from t0. The caller opens
+    the stage."""
+    tables = codes_mod.build_code_tables(stream.freqs)
+    path_cod = formats.add_ext(stream.path, formats.CODES_EXT)
+    if write:
+        _write_file(path_cod, "cod", formats.write_cod_tables, stream.mode,
+                    stream.sizes, tables)
+    return tables, _report("t", t0, stream.sizes, stream.sizes, [path_cod])
+
+
+# ---------------------------------------------------------------------------
+# Module F: RLE compression + frequency histograms (f.c:180-412)
+# ---------------------------------------------------------------------------
+
+@_stage("f")
+def module_f(path: str, force_rle: bool, force_freq: bool, block_size: int,
+             backend: Backend) -> tuple[str, StageReport]:
+    t0 = time.perf_counter()
+    geo = _input_geometry(path, block_size)
+    sizes = geo.sizes()
+    with tracing.span("shafa.io.read.input"), open(path, "rb") as fp:
+        blocks = _read_blocks(fp, sizes)
+
+    rle0 = backend.rle_encode(blocks[:1])[0]
+    compress_rle = _rle_gate(sizes[0], rle0.size, force_rle)
+    rle_blocks = rle_freqs = None
     if compress_rle:
         rle_blocks = [rle0] + backend.rle_encode(blocks[1:])
-        rle_sizes = [b.size for b in rle_blocks]
-        freqs = backend.histogram(rle_blocks)
-        with tracing.span("shafa.io.write.rle"), \
-                _AtomicFile(path_rle) as fp:
-            for b in rle_blocks:
-                fp.write(b.tobytes())
-        path_rle_freq = formats.add_ext(path_rle, formats.FREQ_EXT)
-        with tracing.span("shafa.io.write.freq"), \
-                _AtomicFile(path_rle_freq) as fp:
-            formats.write_freq_arrays(fp, "R", rle_sizes, np.stack(freqs))
-        generated += [path_rle, path_rle_freq]
-    if force_freq or not compress_rle:
-        freqs = backend.histogram(blocks)
-        path_freq = formats.add_ext(path, formats.FREQ_EXT)
-        with tracing.span("shafa.io.write.freq"), \
-                _AtomicFile(path_freq) as fp:
-            formats.write_freq_arrays(fp, "N", sizes, np.stack(freqs))
-        generated.append(path_freq)
-
-    new_path = path_rle if compress_rle else path
-    report = StageReport(
-        module="f", n_blocks=geo.n_blocks, sizes_before=sizes,
-        sizes_after=rle_sizes or sizes,
-        runtime_ms=(time.perf_counter() - t0) * 1e3,
-        generated=generated,
-        extra={"compress_rle": compress_rle, "size_f": geo.total},
-    )
-    return new_path, report
+        rle_freqs = np.stack(backend.histogram(rle_blocks))
+        _write_file(formats.add_ext(path, formats.RLE_EXT), "rle",
+                    _write_rows, rle_blocks)
+    stream, generated = _freq_step(
+        path, compress_rle, force_freq, sizes,
+        [b.size for b in rle_blocks or ()], lambda: rle_freqs,
+        lambda: np.stack(backend.histogram(blocks)))
+    return stream.path, _report("f", t0, sizes, stream.sizes, generated,
+                                compress_rle=compress_rle, size_f=geo.total)
 
 
 # ---------------------------------------------------------------------------
@@ -474,47 +572,33 @@ class _Overlap:
         self._wr.shutdown(wait=True)
 
 
-def _read_block_range(fp, geo, lo: int, hi: int) -> list[np.ndarray]:
-    """Blocks [lo, hi) of an open file (one contiguous read). Copy of
-    shafa_tpu/pipeline.py:412."""
-    sizes = geo.sizes()
-    fp.seek(geo.offset(lo))
-    buf = fp.read(sum(sizes[lo:hi]))
-    tracing.count("file_read_bytes", len(buf))
-    out, pos = [], 0
-    for s in sizes[lo:hi]:
-        if pos + s > len(buf):
-            raise FileUnrecognizableError("truncated block")
-        out.append(np.frombuffer(buf, np.uint8, count=s, offset=pos))
-        pos += s
-    return out
+def _stream(batches, read, step, kinds: tuple[str, str],
+            after=None) -> None:
+    """The streaming loop (shafa_tpu/pipeline.py:372-409's overlap): batch
+    k+1 is read ahead, read(lo, hi), while step(lo, hi, data, write)
+    computes batch k and hands its output to write(fn, *args), which
+    writes it behind; after(k), where given, runs once batch k's writes
+    are done (the compress passes record their progress there). kinds:
+    the (read, write) span kinds of _Overlap."""
+    ov = _Overlap(*kinds)
+    try:
+        if batches:
+            ov.prefetch(read, *batches[0])
+        for k, (lo, hi) in enumerate(batches):
+            data = ov.take()
+            if k + 1 < len(batches):
+                ov.prefetch(read, *batches[k + 1])
+            step(lo, hi, data, ov.write)
+            if after is not None:
+                ov.drain()
+                after(k)
+        ov.drain()
+    finally:
+        ov.close()
 
 
-def _stream_batches(geo, block_size: int):
-    """Block index ranges sized like the device backend's batches (copy of
-    shafa_tpu/pipeline.py:426). device.MAX_BATCH_ELEMS is read at call
-    time."""
-    from . import device
-    p = device._bucket(block_size)
-    bsz = max(1, device.MAX_BATCH_ELEMS // p)
-    for lo in range(0, geo.n_blocks, bsz):
-        yield lo, min(lo + bsz, geo.n_blocks)
-
-
-def _decode_batch_blocks(block_sizes) -> int:
-    """Blocks per streaming decode batch (shafa_tpu/pipeline.py:870-873):
-    the decompressed counts bound the padded decode width, since payloads
-    are never larger than their decoded streams."""
-    from . import device
-    p = device._bucket(max(block_sizes) if block_sizes else 1)
-    return max(1, device.MAX_BATCH_ELEMS // (p * 8))
-
-
-def _sub_tables(tables, lo: int, hi: int) -> codes_mod.CodeTables:
-    """Rows [lo, hi) of a CodeTables, overflow rows renumbered."""
-    return codes_mod.CodeTables(
-        tables.lens[lo:hi], tables.vals[lo:hi],
-        {i - lo: v for i, v in tables.overflow.items() if lo <= i < hi})
+def _stacked(hists: list) -> np.ndarray:
+    return np.concatenate(hists) if hists else np.zeros((0, 256), np.int64)
 
 
 def compress_pipeline_streaming(path: str, force_rle: bool, force_freq: bool,
@@ -527,34 +611,30 @@ def compress_pipeline_streaming(path: str, force_rle: bool, force_freq: bool,
     bytes as they compact off the device and keeping only KB-scale
     histograms/sizes on host; module T runs on the gathered histograms;
     pass C re-reads the stream (`.rle` or the original) batch-wise and
-    appends `.shaf` frames. Peak host and device memory are one batch
-    (~MAX_BATCH_ELEMS plus outputs) regardless of file size. Output files
-    are byte-identical to compress_pipeline's at any batch size
-    (tests/test_torch_streaming.py).
+    appends `.shaf` frames. Peak host and device memory are one device
+    batch (device.batch_rows) plus outputs, whatever the file's size.
+    Output files are byte-identical to compress_pipeline's at any batch
+    size (tests/test_torch_streaming.py).
     """
     t0 = time.perf_counter()
-    with tracing.span("shafa.pipeline.f"):
-        if not os.path.isfile(path):
-            raise FileInaccessibleError(path)
-        geo = geometry.geometry_for_file(path, block_size)
-        if geo.total < geometry.MIN_FILE_SIZE:
-            raise FileTooSmallError(path)
+    with _stage("f"):
+        geo = _input_geometry(path, block_size)
         sizes = geo.sizes()
+        batches = _batches(geo.n_blocks, block_size)
 
         # --- pass F --------------------------------------------------------
         rle_sizes: list[int] = []
         rle_hists: list[np.ndarray] = []
         raw_hists: list[np.ndarray] = []
         compress_rle: bool | None = None
-        generated: list[str] = []
         path_rle = formats.add_ext(path, formats.RLE_EXT)
         prog = _Progress(path_rle + ".progress", _input_key(path, block_size))
-        start_bi = 0
+        start = 0
         resume_at = None
         st = prog.load()
         if st is not None and (not bool(st["compress_rle"])
                               or os.path.isfile(path_rle + ".shafa_tmp")):
-            start_bi = int(st["done_batches"])
+            start = int(st["done_batches"])
             compress_rle = bool(st["compress_rle"])
             resume_at = int(st["rle_written"])
             if compress_rle:
@@ -567,169 +647,94 @@ def compress_pipeline_streaming(path: str, force_rle: bool, force_freq: bool,
         rle_fp = None
         if resume_at is not None and compress_rle:
             rle_fp = rle_tmp.__enter__()
-        batches = list(_stream_batches(geo, block_size))
-        # read batch k+1 / write batch k-1 while k computes
-        ov = _Overlap("input", "rle")
+
+        def encode(lo, hi, blocks, write):
+            nonlocal compress_rle, rle_fp
+            h = backend.fused_encode(blocks)
+            batch_sizes = backend.fused_rle_sizes(h)
+            if compress_rle is None:
+                compress_rle = _rle_gate(sizes[0], int(batch_sizes[0]),
+                                         force_rle)
+                if compress_rle:
+                    rle_fp = rle_tmp.__enter__()
+            if compress_rle:
+                rle_sizes.extend(int(s) for s in batch_sizes)
+                rle_hists.append(backend.fused_rle_hists(h))
+                write(rle_fp.write, backend.fused_rle_bytes(h).tobytes())
+            if force_freq or not compress_rle:
+                raw_hists.append(backend.fused_raw_hists(h))
+
+        def progress_f(k):
+            rle_hists[:] = [_stacked(rle_hists)] if rle_hists else []
+            raw_hists[:] = [_stacked(raw_hists)] if raw_hists else []
+            prog.save(done_batches=start + k + 1,
+                      compress_rle=bool(compress_rle),
+                      rle_written=rle_fp.tell() if rle_fp else 0,
+                      rle_sizes=np.asarray(rle_sizes, np.int64),
+                      rle_hists=_stacked(rle_hists),
+                      raw_hists=_stacked(raw_hists))
+
         try:
             with open(path, "rb") as fp:
-                if start_bi < len(batches):
-                    ov.prefetch(_read_block_range, fp, geo, *batches[start_bi])
-                for bi in range(start_bi, len(batches)):
-                    blocks = ov.take()
-                    if bi + 1 < len(batches):
-                        ov.prefetch(_read_block_range, fp, geo,
-                                    *batches[bi + 1])
-                    h = backend.fused_encode(blocks)
-                    batch_sizes = backend.fused_rle_sizes(h)
-                    if compress_rle is None:  # gate from block 0 (f.c:250-257)
-                        ratio = (sizes[0] - int(batch_sizes[0])) / sizes[0]
-                        compress_rle = force_rle or ratio >= RLE_GATE_RATIO
-                        if compress_rle:
-                            rle_fp = rle_tmp.__enter__()
-                    if compress_rle:
-                        rle_sizes.extend(int(s) for s in batch_sizes)
-                        rle_hists.append(backend.fused_rle_hists(h))
-                        ov.write(rle_fp.write,
-                                 backend.fused_rle_bytes(h).tobytes())
-                    if force_freq or not compress_rle:
-                        raw_hists.append(backend.fused_raw_hists(h))
-                    del h  # free the batch's device tensors
-                    if prog.enabled:
-                        ov.drain()  # writes durable before recording progress
-                        prog.save(
-                            done_batches=bi + 1,
-                            compress_rle=bool(compress_rle),
-                            rle_written=rle_fp.tell() if rle_fp else 0,
-                            rle_sizes=np.asarray(rle_sizes, np.int64),
-                            rle_hists=(np.concatenate(rle_hists) if rle_hists
-                                       else np.zeros((0, 256), np.int64)),
-                            raw_hists=(np.concatenate(raw_hists) if raw_hists
-                                       else np.zeros((0, 256), np.int64)))
-                        if rle_hists:
-                            rle_hists = [np.concatenate(rle_hists)]
-                        if raw_hists:
-                            raw_hists = [np.concatenate(raw_hists)]
-                ov.drain()
+                _stream(batches[start:],
+                        lambda lo, hi: _read_blocks(fp, sizes, lo, hi),
+                        encode, ("input", "rle"),
+                        progress_f if prog.enabled else None)
         except BaseException:
             if rle_fp is not None:
                 rle_tmp.__exit__(RuntimeError, None, None)
             raise
-        finally:
-            ov.close()
         if rle_fp is not None:
             rle_tmp.__exit__(None, None, None)
         prog.clear()
+        stream, generated = _freq_step(
+            path, compress_rle, force_freq, sizes, rle_sizes,
+            lambda: _stacked(rle_hists), lambda: _stacked(raw_hists))
+    rep_f = _report("f", t0, sizes, stream.sizes, generated,
+                    compress_rle=compress_rle, size_f=geo.total,
+                    streaming=True)
 
-        if compress_rle:
-            freqs = np.concatenate(rle_hists)
-            path_rle_freq = formats.add_ext(path_rle, formats.FREQ_EXT)
-            with tracing.span("shafa.io.write.freq"), \
-                    _AtomicFile(path_rle_freq) as fp:
-                formats.write_freq_arrays(fp, "R", rle_sizes, freqs)
-            generated += [path_rle, path_rle_freq]
-            mode, stream_sizes = "R", rle_sizes
-        if force_freq or not compress_rle:
-            nfreqs = np.concatenate(raw_hists)
-            path_freq = formats.add_ext(path, formats.FREQ_EXT)
-            with tracing.span("shafa.io.write.freq"), \
-                    _AtomicFile(path_freq) as fp:
-                formats.write_freq_arrays(fp, "N", sizes, nfreqs)
-            generated.append(path_freq)
-            if not compress_rle:
-                mode, stream_sizes, freqs = "N", list(sizes), nfreqs
-        data_path = path_rle if compress_rle else path
-    rep_f = StageReport(
-        module="f", n_blocks=geo.n_blocks, sizes_before=sizes,
-        sizes_after=stream_sizes,
-        runtime_ms=(time.perf_counter() - t0) * 1e3, generated=generated,
-        extra={"compress_rle": compress_rle, "size_f": geo.total,
-               "streaming": True})
-
-    # --- module T ------------------------------------------------------------
     t1 = time.perf_counter()
-    try:
-        with tracing.span("shafa.pipeline.t"):
-            tables = codes_mod.build_code_tables(freqs)
-            path_cod = formats.add_ext(data_path, formats.CODES_EXT)
-            with tracing.span("shafa.io.write.cod"), \
-                    _AtomicFile(path_cod) as fp:
-                formats.write_cod_tables(fp, mode, stream_sizes, tables)
-    except ShafaError as e:
-        e.stage = "t"
-        raise
-    rep_t = StageReport(
-        module="t", n_blocks=geo.n_blocks, sizes_before=stream_sizes,
-        sizes_after=stream_sizes,
-        runtime_ms=(time.perf_counter() - t1) * 1e3, generated=[path_cod])
+    with _stage("t"):
+        tables, rep_t = _t_step(stream, t1)
 
     # --- pass C ------------------------------------------------------------
     t2 = time.perf_counter()
     payload_sizes: list[int] = []
-    try:
-        with tracing.span("shafa.pipeline.c"):
-            path_shafa = formats.add_ext(data_path, formats.SHAFA_EXT)
-            offs = np.concatenate(([0], np.cumsum(stream_sizes)))
+    with _stage("c"):
+        path_shafa = formats.add_ext(stream.path, formats.SHAFA_EXT)
+        progc = _Progress(path_shafa + ".progress",
+                          _input_key(path, block_size))
+        startc = 0
+        resume_c = None
+        stc = progc.load()
+        if stc is not None and os.path.isfile(path_shafa + ".shafa_tmp"):
+            startc = int(stc["done_batches"])
+            payload_sizes.extend(int(s) for s in stc["payload_sizes"])
+            resume_c = int(stc["written"])
 
-            def read_streams(fp, lo, hi):
-                fp.seek(offs[lo])
-                buf = fp.read(int(offs[hi] - offs[lo]))
-                tracing.count("file_read_bytes", len(buf))
-                blocks, pos = [], 0
-                for s in stream_sizes[lo:hi]:
-                    blocks.append(np.frombuffer(buf, np.uint8, count=s,
-                                                offset=pos))
-                    pos += s
-                return blocks
+        def pack(lo, hi, blocks, write):
+            payloads = backend.pack(
+                blocks, codes_mod.take_rows(tables, lo, hi),
+                stream.freqs[lo:hi])
+            payload_sizes.extend(len(p) for p in payloads)
+            write(_write_shaf, out_fp, payloads)
 
-            def write_payloads(out_fp, payloads):
-                for p in payloads:
-                    formats.write_shaf_block(out_fp, p)
+        def progress_c(k):
+            progc.save(done_batches=startc + k + 1, written=out_fp.tell(),
+                       payload_sizes=np.asarray(payload_sizes, np.int64))
 
-            progc = _Progress(path_shafa + ".progress",
-                              _input_key(path, block_size))
-            startc = 0
-            resume_c = None
-            stc = progc.load()
-            if stc is not None and os.path.isfile(path_shafa + ".shafa_tmp"):
-                startc = int(stc["done_batches"])
-                payload_sizes.extend(int(s) for s in stc["payload_sizes"])
-                resume_c = int(stc["written"])
-            ov = _Overlap(_data_kind(data_path), "shaf")
-            try:
-                with _AtomicFile(path_shafa, keep_on_error=progc.enabled,
-                                 resume_at=resume_c) as out_fp, \
-                        open(data_path, "rb") as fp:
-                    if resume_c is None:
-                        formats.write_shaf_header(out_fp, geo.n_blocks)
-                    if startc < len(batches):
-                        ov.prefetch(read_streams, fp, *batches[startc])
-                    for bi in range(startc, len(batches)):
-                        lo, hi = batches[bi]
-                        blocks = ov.take()
-                        if bi + 1 < len(batches):
-                            ov.prefetch(read_streams, fp, *batches[bi + 1])
-                        payloads = backend.pack(blocks, _sub_tables(tables, lo,
-                                                                    hi),
-                                                freqs[lo:hi])
-                        payload_sizes.extend(len(p) for p in payloads)
-                        ov.write(write_payloads, out_fp, payloads)
-                        if progc.enabled:
-                            ov.drain()
-                            progc.save(done_batches=bi + 1,
-                                       written=out_fp.tell(),
-                                       payload_sizes=np.asarray(payload_sizes,
-                                                                np.int64))
-                    ov.drain()
-            finally:
-                ov.close()
-            progc.clear()
-    except ShafaError as e:
-        e.stage = "c"
-        raise
-    rep_c = StageReport(
-        module="c", n_blocks=geo.n_blocks, sizes_before=stream_sizes,
-        sizes_after=payload_sizes,
-        runtime_ms=(time.perf_counter() - t2) * 1e3, generated=[path_shafa])
+        with _AtomicFile(path_shafa, keep_on_error=progc.enabled,
+                         resume_at=resume_c) as out_fp, \
+                open(stream.path, "rb") as fp:
+            if resume_c is None:
+                _write_shaf(out_fp, (), geo.n_blocks)
+            _stream(batches[startc:],
+                    lambda lo, hi: _read_blocks(fp, stream.sizes, lo, hi),
+                    pack, (_data_kind(stream.path), "shaf"),
+                    progress_c if progc.enabled else None)
+        progc.clear()
+    rep_c = _report("c", t2, stream.sizes, payload_sizes, [path_shafa])
     return path_shafa, [rep_f, rep_t, rep_c]
 
 
@@ -754,16 +759,8 @@ def compress_pipeline(path: str, force_rle: bool, force_freq: bool,
     """
     if not getattr(backend, "supports_fused", False):
         p, rf = module_f(path, force_rle, force_freq, block_size, backend)
-        try:
-            p, rt = module_t(p)
-        except ShafaError as e:
-            e.stage = "t"
-            raise
-        try:
-            p, rc = module_c(p, backend)
-        except ShafaError as e:
-            e.stage = "c"
-            raise
+        p, rt = module_t(p)
+        p, rc = module_c(p, backend)
         return p, [rf, rt, rc]
 
     if _over_stream_threshold(path):
@@ -771,68 +768,30 @@ def compress_pipeline(path: str, force_rle: bool, force_freq: bool,
                                            block_size, backend)
 
     t0 = time.perf_counter()
-    with tracing.span("shafa.pipeline.f"):
-        if not os.path.isfile(path):
-            raise FileInaccessibleError(path)
-        geo = geometry.geometry_for_file(path, block_size)
-        if geo.total < geometry.MIN_FILE_SIZE:
-            raise FileTooSmallError(path)
+    with _stage("f"):
+        geo = _input_geometry(path, block_size)
         sizes = geo.sizes()
-        blocks = _read_blocks(path, sizes, "input")
+        with tracing.span("shafa.io.read.input"), open(path, "rb") as fp:
+            blocks = _read_blocks(fp, sizes)
 
         handle = backend.fused_encode(blocks)
         rle_sizes = backend.fused_rle_sizes(handle)
-        ratio = (sizes[0] - int(rle_sizes[0])) / sizes[0]
-        compress_rle = force_rle or ratio >= RLE_GATE_RATIO
-
-        generated: list[str] = []
-        path_rle = formats.add_ext(path, formats.RLE_EXT)
-        rle_flat = None
-        rle_offs = None
+        compress_rle = _rle_gate(sizes[0], int(rle_sizes[0]), force_rle)
         if compress_rle:
             rle_flat = backend.fused_rle_bytes(handle)
             rle_offs = np.concatenate(([0], np.cumsum(rle_sizes)))
-            with tracing.span("shafa.io.write.rle"), \
-                    _AtomicFile(path_rle) as fp:
-                fp.write(rle_flat.tobytes())
-            freqs = backend.fused_rle_hists(handle)
-            path_rle_freq = formats.add_ext(path_rle, formats.FREQ_EXT)
-            with tracing.span("shafa.io.write.freq"), \
-                    _AtomicFile(path_rle_freq) as fp:
-                formats.write_freq_arrays(fp, "R", rle_sizes, freqs)
-            generated += [path_rle, path_rle_freq]
-            mode, stream_sizes = "R", [int(s) for s in rle_sizes]
-        if force_freq or not compress_rle:
-            nfreqs = backend.fused_raw_hists(handle)
-            path_freq = formats.add_ext(path, formats.FREQ_EXT)
-            with tracing.span("shafa.io.write.freq"), \
-                    _AtomicFile(path_freq) as fp:
-                formats.write_freq_arrays(fp, "N", sizes, nfreqs)
-            generated.append(path_freq)
-            if not compress_rle:
-                mode, stream_sizes, freqs = "N", list(sizes), nfreqs
-        data_path = path_rle if compress_rle else path
-    rep_f = StageReport(
-        module="f", n_blocks=geo.n_blocks, sizes_before=sizes,
-        sizes_after=stream_sizes,
-        runtime_ms=(time.perf_counter() - t0) * 1e3, generated=generated,
-        extra={"compress_rle": compress_rle, "size_f": geo.total})
+            _write_file(formats.add_ext(path, formats.RLE_EXT), "rle",
+                        _write_rows, [rle_flat])
+        stream, generated = _freq_step(
+            path, compress_rle, force_freq, sizes, rle_sizes,
+            lambda: backend.fused_rle_hists(handle),
+            lambda: backend.fused_raw_hists(handle))
+    rep_f = _report("f", t0, sizes, stream.sizes, generated,
+                    compress_rle=compress_rle, size_f=geo.total)
 
     t1 = time.perf_counter()
-    try:
-        with tracing.span("shafa.pipeline.t"):
-            tables = codes_mod.build_code_tables(freqs)
-            path_cod = formats.add_ext(data_path, formats.CODES_EXT)
-            with tracing.span("shafa.io.write.cod"), \
-                    _AtomicFile(path_cod) as fp:
-                formats.write_cod_tables(fp, mode, stream_sizes, tables)
-    except ShafaError as e:
-        e.stage = "t"
-        raise
-    rep_t = StageReport(
-        module="t", n_blocks=geo.n_blocks, sizes_before=stream_sizes,
-        sizes_after=stream_sizes,
-        runtime_ms=(time.perf_counter() - t1) * 1e3, generated=[path_cod])
+    with _stage("t"):
+        tables, rep_t = _t_step(stream, t1)
 
     t2 = time.perf_counter()
 
@@ -841,23 +800,12 @@ def compress_pipeline(path: str, force_rle: bool, force_freq: bool,
             return rle_flat[rle_offs[i]:rle_offs[i + 1]]
         return blocks[i]
 
-    try:
-        with tracing.span("shafa.pipeline.c"):
-            payloads = backend.fused_pack(handle, tables, compress_rle,
-                                          host_row)
-            path_shafa = formats.add_ext(data_path, formats.SHAFA_EXT)
-            with tracing.span("shafa.io.write.shaf"), \
-                    _AtomicFile(path_shafa) as fp:
-                formats.write_shaf_header(fp, geo.n_blocks)
-                for p in payloads:
-                    formats.write_shaf_block(fp, p)
-    except ShafaError as e:
-        e.stage = "c"
-        raise
-    rep_c = StageReport(
-        module="c", n_blocks=geo.n_blocks, sizes_before=stream_sizes,
-        sizes_after=[len(p) for p in payloads],
-        runtime_ms=(time.perf_counter() - t2) * 1e3, generated=[path_shafa])
+    with _stage("c"):
+        payloads = backend.fused_pack(handle, tables, compress_rle, host_row)
+        path_shafa = formats.add_ext(stream.path, formats.SHAFA_EXT)
+        _write_file(path_shafa, "shaf", _write_shaf, payloads, geo.n_blocks)
+    rep_c = _report("c", t2, stream.sizes, [len(p) for p in payloads],
+                    [path_shafa])
     return path_shafa, [rep_f, rep_t, rep_c]
 
 
@@ -865,57 +813,40 @@ def compress_pipeline(path: str, force_rle: bool, force_freq: bool,
 # Module T: Shannon-Fano code construction (t.c:246-445)
 # ---------------------------------------------------------------------------
 
-@tracing.spanned("shafa.pipeline.t")
+@_stage("t")
 def module_t(path: str) -> tuple[str, StageReport]:
     t0 = time.perf_counter()
-    mode, block_sizes, freqs = formats.parse_freq_arrays(
-        _open_read(formats.add_ext(path, formats.FREQ_EXT), "freq"))
-    tables = codes_mod.build_code_tables(freqs)
-    path_cod = formats.add_ext(path, formats.CODES_EXT)
-    with tracing.span("shafa.io.write.cod"), _AtomicFile(path_cod) as fp:
-        formats.write_cod_tables(fp, mode, block_sizes, tables)
-    report = StageReport(
-        module="t", n_blocks=len(block_sizes), sizes_before=block_sizes,
-        sizes_after=block_sizes,
-        runtime_ms=(time.perf_counter() - t0) * 1e3,
-        generated=[path_cod],
-    )
-    return path, report
+    stream = _DataStream(path, *formats.parse_freq_arrays(
+        _open_read(formats.add_ext(path, formats.FREQ_EXT), "freq")))
+    return path, _t_step(stream, t0)[1]
 
 
 # ---------------------------------------------------------------------------
 # Module C: bit-pack encode (c.c:306-472)
 # ---------------------------------------------------------------------------
 
-@tracing.spanned("shafa.pipeline.c")
+@_stage("c")
 def module_c(path: str, backend: Backend) -> tuple[str, StageReport]:
     t0 = time.perf_counter()
     _, block_sizes, tables = formats.parse_cod_tables(
         _open_read(formats.add_ext(path, formats.CODES_EXT), "cod"))
     if not os.path.isfile(path):
         raise FileInaccessibleError(path)
-    blocks = _read_blocks(path, block_sizes, _data_kind(path))
+    with tracing.span(f"shafa.io.read.{_data_kind(path)}"), \
+            open(path, "rb") as fp:
+        blocks = _read_blocks(fp, block_sizes)
     payloads = backend.pack(blocks, tables)
     path_shafa = formats.add_ext(path, formats.SHAFA_EXT)
-    with tracing.span("shafa.io.write.shaf"), \
-            _AtomicFile(path_shafa) as fp:
-        formats.write_shaf_header(fp, len(block_sizes))
-        for p in payloads:
-            formats.write_shaf_block(fp, p)
-    report = StageReport(
-        module="c", n_blocks=len(block_sizes), sizes_before=block_sizes,
-        sizes_after=[len(p) for p in payloads],
-        runtime_ms=(time.perf_counter() - t0) * 1e3,
-        generated=[path_shafa],
-    )
-    return path_shafa, report
+    _write_file(path_shafa, "shaf", _write_shaf, payloads, len(block_sizes))
+    return path_shafa, _report("c", t0, block_sizes,
+                               [len(p) for p in payloads], [path_shafa])
 
 
 # ---------------------------------------------------------------------------
 # Module D: decode (d.c:628-834) and RLE-only decode (d.c:232-388)
 # ---------------------------------------------------------------------------
 
-@tracing.spanned("shafa.pipeline.d")
+@_stage("d")
 def module_d_shafa(path: str, rle_decompression: bool,
                    backend: Backend) -> tuple[str, StageReport]:
     t0 = time.perf_counter()
@@ -926,115 +857,31 @@ def module_d_shafa(path: str, rle_decompression: bool,
     # Mode legality (d.c:678): N forbids the RLE path; R allows both.
     if not ((mode == "N" and not rle_decompression) or mode == "R"):
         raise FileUnrecognizableError(".cod mode vs decompression type")
-    if (getattr(backend, "supports_fused", False)
-            and _over_stream_threshold(path)):
-        return _module_d_shafa_streaming(path, path_wrt, block_sizes,
-                                         tables, rle_decompression,
-                                         backend, t0)
+    algo = "shafa_rle" if rle_decompression else "shafa"
+    fused = getattr(backend, "supports_fused", False)
+    if fused and _over_stream_threshold(path):
+        return _module_d_streaming(
+            path, path_wrt, block_sizes, "shaf", t0, algo,
+            lambda lo, hi, payloads: backend.fused_decode(
+                payloads, codes_mod.take_rows(tables, lo, hi),
+                block_sizes[lo:hi], expand=rle_decompression))
     payloads = formats.parse_shaf_frames(_open_read(path, "shaf"))
     if len(payloads) != len(block_sizes):
         raise FileUnrecognizableError("block count mismatch .shaf vs .cod")
-    if getattr(backend, "supports_fused", False):
+    if fused:
         out_blocks = backend.fused_decode(payloads, tables, block_sizes,
                                           expand=rle_decompression)
     else:
-        decoded = backend.unpack(payloads, tables, block_sizes)
+        out_blocks = backend.unpack(payloads, tables, block_sizes)
         if rle_decompression:
-            out_blocks = backend.rle_expand(decoded)
-        else:
-            out_blocks = decoded
-    with tracing.span("shafa.io.write.restored"), \
-            _AtomicFile(path_wrt) as fp:
-        for b in out_blocks:
-            fp.write(b.tobytes())
-    report = StageReport(
-        module="d", n_blocks=len(block_sizes),
-        sizes_before=[len(p) for p in payloads],
-        sizes_after=[b.size for b in out_blocks],
-        runtime_ms=(time.perf_counter() - t0) * 1e3,
-        generated=[path_wrt],
-        extra={"algo": "shafa_rle" if rle_decompression else "shafa"},
-    )
-    return path_wrt, report
+            out_blocks = backend.rle_expand(out_blocks)
+    _write_file(path_wrt, "restored", _write_rows, out_blocks)
+    return path_wrt, _report("d", t0, [len(p) for p in payloads],
+                             [b.size for b in out_blocks], [path_wrt],
+                             algo=algo)
 
 
-def _module_d_shafa_streaming(path, path_wrt, block_sizes, tables,
-                              rle_decompression, backend, t0
-                              ) -> tuple[str, StageReport]:
-    """Bounded-memory decode: one device batch of frames resident at a
-    time. Copy of shafa_tpu/pipeline.py:856-935.
-
-    Mirrors compress_pipeline_streaming for module D (the reference keeps
-    exactly one block resident, d.c:694-763): frames are read incrementally
-    (formats.iter_shaf_frames_file), decoded+expanded batch-wise, and
-    appended to the output file. Peak host memory is one batch of payloads
-    plus its decoded output regardless of archive size. Output bytes are
-    identical to the resident path's (tests/test_torch_streaming.py)."""
-    n_blocks = len(block_sizes)
-    bsz = _decode_batch_blocks(block_sizes)
-    sizes_before: list[int] = []
-    sizes_after: list[int] = []
-
-    def read_frames(frames, n):
-        payloads = []
-        start = in_fp.tell()
-        for _ in range(n):
-            try:
-                payloads.append(next(frames))
-            except StopIteration:
-                raise FileUnrecognizableError(
-                    "block count mismatch .shaf vs .cod") from None
-        tracing.count("file_read_bytes", in_fp.tell() - start)
-        return payloads
-
-    try:
-        # frame read-ahead / output write-behind
-        ov = _Overlap("shaf", "restored")
-        try:
-            with open(path, "rb") as in_fp:
-                frames = formats.iter_shaf_frames_file(in_fp)
-                with _AtomicFile(path_wrt) as out_fp:
-                    done = 0
-                    ov.prefetch(read_frames, frames, min(bsz, n_blocks))
-                    while done < n_blocks:
-                        hi = min(done + bsz, n_blocks)
-                        payloads = ov.take()
-                        if hi < n_blocks:
-                            ov.prefetch(read_frames, frames,
-                                        min(hi + bsz, n_blocks) - hi)
-                        out_blocks = backend.fused_decode(
-                            payloads, _sub_tables(tables, done, hi),
-                            block_sizes[done:hi], expand=rle_decompression)
-
-                        def write_batch(out_blocks=out_blocks):
-                            for b in out_blocks:
-                                out_fp.write(b.tobytes())
-                        sizes_after.extend(b.size for b in out_blocks)
-                        sizes_before.extend(len(pay) for pay in payloads)
-                        ov.write(write_batch)
-                        done = hi
-                    ov.drain()
-                    # archive must not have extra frames (iter raises on
-                    # trailing bytes only when driven to exhaustion)
-                    if next(frames, None) is not None:
-                        raise FileUnrecognizableError(
-                            "block count mismatch .shaf vs .cod")
-        finally:
-            ov.close()
-    except OSError as e:
-        raise FileInaccessibleError(str(e)) from e
-    report = StageReport(
-        module="d", n_blocks=n_blocks,
-        sizes_before=sizes_before, sizes_after=sizes_after,
-        runtime_ms=(time.perf_counter() - t0) * 1e3,
-        generated=[path_wrt],
-        extra={"algo": "shafa_rle" if rle_decompression else "shafa",
-               "streaming": True},
-    )
-    return path_wrt, report
-
-
-@tracing.spanned("shafa.pipeline.d")
+@_stage("d")
 def module_d_rle(path: str, backend: Backend) -> tuple[str, StageReport]:
     t0 = time.perf_counter()
     freq = formats.parse_freq(_open_read(formats.add_ext(path,
@@ -1044,80 +891,189 @@ def module_d_rle(path: str, backend: Backend) -> tuple[str, StageReport]:
         raise FileUnrecognizableError(".freq mode must be R for RLE decode")
     path_wrt = formats.rm_ext(path)
     if _over_stream_threshold(path):
-        return _module_d_rle_streaming(path, path_wrt, freq, backend, t0)
-    blocks = _read_blocks(path, freq.block_sizes, "rle")
+        return _module_d_streaming(
+            path, path_wrt, freq.block_sizes, "rle", t0, "rle",
+            lambda lo, hi, blocks: backend.rle_expand(blocks))
+    with tracing.span("shafa.io.read.rle"), open(path, "rb") as fp:
+        blocks = _read_blocks(fp, freq.block_sizes)
     out_blocks = backend.rle_expand(blocks)
-    with tracing.span("shafa.io.write.restored"), \
-            _AtomicFile(path_wrt) as fp:
-        for b in out_blocks:
-            fp.write(b.tobytes())
-    report = StageReport(
-        module="d", n_blocks=freq.n_blocks, sizes_before=freq.block_sizes,
-        sizes_after=[b.size for b in out_blocks],
-        runtime_ms=(time.perf_counter() - t0) * 1e3,
-        generated=[path_wrt],
-        extra={"algo": "rle"},
-    )
-    return path_wrt, report
+    _write_file(path_wrt, "restored", _write_rows, out_blocks)
+    return path_wrt, _report("d", t0, freq.block_sizes,
+                             [b.size for b in out_blocks], [path_wrt],
+                             algo="rle")
 
 
-def _module_d_rle_streaming(path, path_wrt, freq, backend, t0
-                            ) -> tuple[str, StageReport]:
-    """Bounded-memory RLE-only decode: one batch of .rle blocks resident at
-    a time (the reference keeps one block, d.c:322-352), with read-ahead /
-    write-behind overlap like the .shaf streaming decode. Copy of
-    shafa_tpu/pipeline.py:961-1020."""
-    block_sizes = freq.block_sizes
+def _module_d_streaming(path, path_wrt, block_sizes, kind: str, t0, algo,
+                        decode) -> tuple[str, StageReport]:
+    """Bounded-memory module D of a .shaf (kind shaf; copy of
+    shafa_tpu/pipeline.py:856-935) or an .rle (kind rle; :961-1020): one
+    device batch of its frames or blocks resident at a time (the reference
+    keeps one block, d.c:694-763 and d.c:322-352), read ahead, decoded by
+    decode(lo, hi, data) and written behind. Output bytes are identical to
+    the resident path's (tests/test_torch_streaming.py)."""
     n_blocks = len(block_sizes)
-    bsz = _decode_batch_blocks(block_sizes)
-    offs = [0]
-    for s in block_sizes:
-        offs.append(offs[-1] + s)
+    sizes_before: list[int] = []
     sizes_after: list[int] = []
 
-    def read_batch(fp, lo, hi):
-        fp.seek(offs[lo])
-        buf = fp.read(offs[hi] - offs[lo])
-        tracing.count("file_read_bytes", len(buf))
-        if len(buf) < offs[hi] - offs[lo]:
-            raise FileUnrecognizableError("truncated .rle")
-        out, pos = [], 0
-        for s in block_sizes[lo:hi]:
-            out.append(np.frombuffer(buf, np.uint8, count=s, offset=pos))
-            pos += s
-        return out
+    def read_frames(lo, hi):
+        payloads = []
+        start = in_fp.tell()
+        for _ in range(hi - lo):
+            try:
+                payloads.append(next(frames))
+            except StopIteration:
+                raise FileUnrecognizableError(
+                    "block count mismatch .shaf vs .cod") from None
+        tracing.count("file_read_bytes", in_fp.tell() - start)
+        return payloads
+
+    def step(lo, hi, data, write):
+        out_blocks = decode(lo, hi, data)
+        sizes_before.extend(len(d) for d in data)
+        sizes_after.extend(b.size for b in out_blocks)
+        write(_write_rows, out_fp, out_blocks)
 
     try:
-        ov = _Overlap("rle", "restored")
-        try:
-            with open(path, "rb") as in_fp, _AtomicFile(path_wrt) as out_fp:
-                done = 0
-                if n_blocks:
-                    ov.prefetch(read_batch, in_fp, 0, min(bsz, n_blocks))
-                while done < n_blocks:
-                    hi = min(done + bsz, n_blocks)
-                    blocks = ov.take()
-                    if hi < n_blocks:
-                        ov.prefetch(read_batch, in_fp, hi,
-                                    min(hi + bsz, n_blocks))
-                    out_blocks = backend.rle_expand(blocks)
-
-                    def write_batch(out_blocks=out_blocks):
-                        for b in out_blocks:
-                            out_fp.write(b.tobytes())
-                    sizes_after.extend(b.size for b in out_blocks)
-                    ov.write(write_batch)
-                    done = hi
-                ov.drain()
-        finally:
-            ov.close()
+        with open(path, "rb") as in_fp, _AtomicFile(path_wrt) as out_fp:
+            frames = formats.iter_shaf_frames_file(in_fp)
+            read = read_frames if kind == "shaf" else \
+                lambda lo, hi: _read_blocks(in_fp, block_sizes, lo, hi)
+            _stream(_batches(n_blocks, max(block_sizes, default=1), 8), read,
+                    step, (kind, "restored"))
+            # the archive must not have extra frames (the iterator raises
+            # on trailing bytes only when driven to exhaustion)
+            if kind == "shaf" and next(frames, None) is not None:
+                raise FileUnrecognizableError(
+                    "block count mismatch .shaf vs .cod")
     except OSError as e:
         raise FileInaccessibleError(str(e)) from e
-    report = StageReport(
-        module="d", n_blocks=n_blocks, sizes_before=block_sizes,
-        sizes_after=sizes_after,
-        runtime_ms=(time.perf_counter() - t0) * 1e3,
-        generated=[path_wrt],
-        extra={"algo": "rle", "streaming": True},
-    )
-    return path_wrt, report
+    return path_wrt, _report("d", t0, sizes_before, sizes_after, [path_wrt],
+                             algo=algo, streaming=True)
+
+
+# ---------------------------------------------------------------------------
+# Multi-host F+T+C and D (shafa_tpu/multihost.py:185-414)
+# ---------------------------------------------------------------------------
+
+def compress_multihost(path: str, block_size: int, backend, comm=None,
+                       force_rle: bool = False,
+                       force_freq: bool = False) -> str:
+    """Modules F+T+C across processes (shafa_tpu/multihost.py:185): output
+    files byte-identical to the one-process pipeline's. Each process
+    streams its block range (multihost.partition_blocks) one device batch
+    at a time into local spool files and splices them into the shared
+    outputs at the offsets the gathered sizes give; process 0 writes the
+    .freq and .cod. comm: a multihost.Comm (by default, the process group's).
+
+    The per-process RLE histograms are kept as int32 (a 64 MiB block's
+    counts fit) and widened after the gather, so .freq and .cod are
+    unchanged."""
+    from . import multihost
+    comm = comm or multihost.Comm()
+    first = comm.index == 0
+    geo = _input_geometry(path, block_size)
+    sizes = geo.sizes()
+    rng = multihost.partition_blocks(geo.n_blocks, comm.count, comm.index)
+    batches = _batches(rng.hi, block_size, 1, rng.lo)
+    spool_dir = os.path.dirname(path) or "."
+
+    # --- pass F: stream batches; spool RLE bytes, keep KB-scale metadata ---
+    my_rle_sizes = np.zeros(rng.n, np.int64)
+    my_rle_hists = np.zeros((rng.n, 256), np.int32)
+    with tempfile.TemporaryFile(dir=spool_dir) as rle_spool:
+        with open(path, "rb") as fp:
+            for lo, hi in batches:
+                h = backend.fused_encode(_read_blocks(fp, sizes, lo, hi))
+                my_rle_sizes[lo - rng.lo: hi - rng.lo] = \
+                    backend.fused_rle_sizes(h)
+                my_rle_hists[lo - rng.lo: hi - rng.lo] = \
+                    backend.fused_rle_hists(h)
+                rle_spool.write(backend.fused_rle_bytes(h).tobytes())
+                del h  # free the batch's device tensors (bounded memory)
+        rle_sizes = comm.allgather(my_rle_sizes)
+        compress_rle = _rle_gate(sizes[0], int(rle_sizes[0]), force_rle)
+        if compress_rle:
+            rle_offs = np.concatenate(([0], np.cumsum(rle_sizes)))
+            multihost.splice_spool(rle_spool,
+                                   formats.add_ext(path, formats.RLE_EXT),
+                                   int(rle_offs[rng.lo]), int(rle_offs[-1]))
+
+    def raw_hists():  # a second streaming pass (f.c:278-334)
+        my_nfreqs = np.zeros((rng.n, 256), np.int64)
+        with open(path, "rb") as fp:
+            for lo, hi in batches:
+                my_nfreqs[lo - rng.lo: hi - rng.lo] = np.stack(
+                    backend.histogram(_read_blocks(fp, sizes, lo, hi)))
+        return comm.allgather(my_nfreqs)
+
+    stream, _ = _freq_step(
+        path, compress_rle, force_freq, sizes, rle_sizes,
+        lambda: comm.allgather(my_rle_hists).astype(np.int64), raw_hists,
+        write=first)
+    # module T: the same tables on every process
+    tables, _ = _t_step(stream, time.perf_counter(), write=first)
+
+    # --- pass C: stream the data stream batch-wise, pack, spool frames ----
+    my_psizes = np.zeros(rng.n, np.int64)
+    with tempfile.TemporaryFile(dir=spool_dir) as shaf_spool:
+        with open(stream.path, "rb") as fp:
+            for lo, hi in batches:
+                payloads = backend.pack(
+                    _read_blocks(fp, stream.sizes, lo, hi),
+                    codes_mod.take_rows(tables, lo, hi), stream.freqs[lo:hi])
+                my_psizes[lo - rng.lo: hi - rng.lo] = [len(p)
+                                                       for p in payloads]
+                _write_shaf(shaf_spool, payloads)
+        offs, total = multihost.shaf_offsets(comm.allgather(my_psizes))
+        path_shafa = formats.add_ext(stream.path, formats.SHAFA_EXT)
+        if first:
+            multihost.write_at(path_shafa, 0,
+                               f"@{geo.n_blocks}".encode("ascii"),
+                               total_size=total)
+        if rng.n:
+            multihost.splice_spool(shaf_spool, path_shafa,
+                                   int(offs[rng.lo]), total)
+    return path_shafa
+
+
+def decompress_multihost(path: str, backend, comm=None) -> str:
+    """Module D across processes (shafa_tpu/multihost.py:363): each process
+    scans the frame headers, reads only its contiguous payload range,
+    decodes it batch-wise into a local spool file and splices the spool
+    into the shared output at the offset the gathered decoded sizes give."""
+    from . import multihost
+    comm = comm or multihost.Comm()
+    path_tmp = formats.rm_ext(path)  # strip .shaf
+    rle = formats.check_ext(path_tmp, formats.RLE_EXT)
+    path_wrt = formats.rm_ext(path_tmp) if rle else path_tmp
+    mode, block_sizes, tables = formats.parse_cod_tables(
+        _open_read(formats.add_ext(path_tmp, formats.CODES_EXT), "cod"))
+    frame_offs, frame_sizes, n_blocks = multihost.scan_shaf_offsets(path)
+    if n_blocks != len(block_sizes):
+        raise FileUnrecognizableError("block count mismatch .shaf vs .cod")
+
+    rng = multihost.partition_blocks(n_blocks, comm.count, comm.index)
+    expand = rle and mode == "R"
+    my_sizes = np.zeros(rng.n, np.int64)
+    with tempfile.TemporaryFile(dir=os.path.dirname(path) or ".") as spool:
+        with open(path, "rb") as fp:
+            for lo, hi in _batches(rng.hi, max(block_sizes, default=1), 8,
+                                   rng.lo):
+                fp.seek(frame_offs[lo])
+                buf = fp.read(int(frame_offs[hi - 1] + frame_sizes[hi - 1]
+                                  - frame_offs[lo]))
+                base = frame_offs[lo]
+                payloads = [
+                    buf[int(frame_offs[i] - base):
+                        int(frame_offs[i] - base + frame_sizes[i])]
+                    for i in range(lo, hi)]
+                out_blocks = backend.fused_decode(
+                    payloads, codes_mod.take_rows(tables, lo, hi),
+                    block_sizes[lo:hi], expand=expand)
+                my_sizes[lo - rng.lo: hi - rng.lo] = [b.size
+                                                      for b in out_blocks]
+                _write_rows(spool, out_blocks)
+        offs = np.concatenate(([0], np.cumsum(comm.allgather(my_sizes))))
+        multihost.splice_spool(spool, path_wrt, int(offs[rng.lo]),
+                               int(offs[-1]))
+    return path_wrt

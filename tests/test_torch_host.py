@@ -46,6 +46,44 @@ def test_no_file_of_the_port_imports_shafa_tpu_or_jax():
     assert len(files) > 20 and not bad
 
 
+def _port_modules_imported_by(path: pathlib.Path) -> set[str]:
+    """The shafa_tpu_torch modules a file of the port imports, its relative
+    imports (``from . import x``, ``from ..x import y``) resolved, a name
+    imported from a package counted as a module of it."""
+    package = ".".join(path.relative_to(REPO).parent.parts)
+    out = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            out.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package.split(".")[:len(package.split(".")) + 1
+                                      - node.level] if node.level else []
+            mod = ".".join(base + ([node.module] if node.module else []))
+            out.add(mod)
+            out.update(f"{mod}.{a.name}" for a in node.names)
+    return {m for m in out if m.split(".")[0] == "shafa_tpu_torch"}
+
+
+def test_the_layers_below_the_pipeline_do_not_import_it():
+    """The backend (device, dist), the multi-host process layer, the host
+    modules and the kernels sit below pipeline.py: none of them imports it,
+    relative imports and imports inside functions included."""
+    port = REPO / "shafa_tpu_torch"
+    files = [port / f"{m}.py" for m in ("device", "dist", "multihost",
+                                        "codes", "formats", "oracle")]
+    files += sorted((port / "kernels").glob("*.py"))
+    bad = {str(f.relative_to(REPO)): m for f in files
+           for m in _port_modules_imported_by(f)
+           if m == "shafa_tpu_torch.pipeline"
+           or m.startswith("shafa_tpu_torch.pipeline.")}
+    assert len(files) > 10 and not bad
+    # the resolver sees the imports the test looks for
+    assert "shafa_tpu_torch.pipeline" in _port_modules_imported_by(
+        port / "cli.py")
+    assert "shafa_tpu_torch.tracing" in _port_modules_imported_by(
+        port / "kernels" / "decode.py")
+
+
 #: imports the port's entry points, runs a small round trip on the CPU and
 #: prints the names of any shafa_tpu or jax module that got loaded
 ROUND_TRIP = r"""

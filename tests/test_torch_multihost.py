@@ -1,6 +1,7 @@
-"""shafa_tpu_torch.multihost against shafa_tpu's multi-host compress and
-decompress and the one-process pipelines, byte for byte, on the CPU
-(SHAFA_TORCH_DEVICE=cpu).
+"""shafa_tpu_torch's multi-host drivers (pipeline.compress_multihost and
+decompress_multihost over multihost.py's process layer) against
+shafa_tpu's multi-host compress and decompress and the one-process
+pipelines, byte for byte, on the CPU (SHAFA_TORCH_DEVICE=cpu).
 
 Simulated hosts run compress_multihost / decompress_multihost in threads
 with a barrier-backed Comm, as tests/test_multihost.py does for the JAX
@@ -102,7 +103,7 @@ def _compress_refs(tmp, data):
 def _compress_multi(tmp, data, hosts):
     path = _write(tmp / f"multi{hosts}", data)
     backend = TorchBackend("cpu")
-    _run_hosts(hosts, lambda comm: multihost.compress_multihost(
+    _run_hosts(hosts, lambda comm: pipeline.compress_multihost(
         path, BS, backend, comm=comm))
     return tmp / f"multi{hosts}"
 
@@ -123,7 +124,7 @@ def test_multihost_roundtrip(tmp_path, hosts):
     os.rename(sub / "data.bin", sub / "data.orig")
     backend = TorchBackend("cpu")
     outs = []
-    _run_hosts(hosts, lambda comm: outs.append(multihost.decompress_multihost(
+    _run_hosts(hosts, lambda comm: outs.append(pipeline.decompress_multihost(
         str(sub / "data.bin.rle.shaf"), backend, comm=comm)))
     assert outs == [str(sub / "data.bin")] * hosts
     assert (sub / "data.bin").read_bytes() == data
@@ -138,7 +139,7 @@ def test_multihost_incompressible_n_mode(tmp_path):
                                      "data.bin.freq", "data.bin.shaf"]
     assert _files(multi) == _files(single) == _files(ref)
     os.rename(multi / "data.bin", multi / "data.orig")
-    _run_hosts(2, lambda comm: multihost.decompress_multihost(
+    _run_hosts(2, lambda comm: pipeline.decompress_multihost(
         str(multi / "data.bin.shaf"), TorchBackend("cpu"), comm=comm))
     assert (multi / "data.bin").read_bytes() == data
 
@@ -185,7 +186,7 @@ def test_stale_file_truncated(tmp_path):
     good = (sub / "data.bin.rle.shaf").read_bytes()
     with open(sub / "data.bin.rle.shaf", "ab") as fp:
         fp.write(b"garbage")
-    _run_hosts(2, lambda comm: multihost.compress_multihost(
+    _run_hosts(2, lambda comm: pipeline.compress_multihost(
         str(sub / "data.bin"), BS, TorchBackend("cpu"), comm=comm))
     assert (sub / "data.bin.rle.shaf").read_bytes() == good
     multihost.write_at(str(sub / "w"), 3, b"xy", total_size=8)

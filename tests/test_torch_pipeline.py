@@ -246,3 +246,41 @@ def test_bad_archive_on_a_host_routed_block_is_not_recognized(
     assert cli.main([shaf, "--backend", backend]) == 1
     assert capsys.readouterr().err.endswith("File not recognized\n")
     assert not os.path.exists(str(tmp_path / kind))
+
+
+def _probe_targets() -> dict:
+    """HOST_SPANS, PIPELINE_ENTRIES and BACKEND_CLASSES of the benchmark's
+    probes (benchmark/harness/probes.py), read from the file's source."""
+    import ast
+    path = os.path.join(REPO, "benchmark", "harness", "probes.py")
+    with open(path) as fp:
+        tree = ast.parse(fp.read(), path)
+    return {t.id: ast.literal_eval(node.value) for node in tree.body
+            if isinstance(node, ast.Assign) for t in node.targets
+            if isinstance(t, ast.Name) and t.id in (
+                "HOST_SPANS", "PIPELINE_ENTRIES", "BACKEND_CLASSES")}
+
+
+def test_every_function_the_benchmark_probes_wrap_exists():
+    """The traced benchmark wraps these functions of the port by name and
+    silently skips a name that is gone or is no longer a plain function,
+    which would empty the span a per-layer metric reads."""
+    import importlib
+    import inspect
+    targets = _probe_targets()
+    assert set(targets) == {"HOST_SPANS", "PIPELINE_ENTRIES",
+                            "BACKEND_CLASSES"}
+    wrapped = targets["HOST_SPANS"] + [
+        (mod, "", attr) for mod, attr in targets["PIPELINE_ENTRIES"]]
+    missing = []
+    for mod, owner, attr in wrapped:
+        obj = importlib.import_module(f"shafa_tpu_torch.{mod}")
+        obj = getattr(obj, owner) if owner else obj
+        raw = vars(obj).get(attr)
+        fn = raw.__func__ if isinstance(raw, staticmethod) else raw
+        if not inspect.isfunction(fn) or inspect.isgeneratorfunction(fn):
+            missing.append(f"{mod}.{owner + '.' if owner else ''}{attr}")
+    assert not missing
+    for mod, cls in targets["BACKEND_CLASSES"]:
+        assert inspect.isclass(getattr(importlib.import_module(
+            f"shafa_tpu_torch.{mod}"), cls))
