@@ -18,11 +18,13 @@ per process (``compress_multihost``, ``decompress_multihost``, over
 multihost.py's process group). Each step they share is written once here:
 the RLE gate (``_rle_gate``), the .freq sidecars (``_freq_step``), module T
 (``_t_step``), the block reader (``_read_blocks``), the writers
-(``_write_file``, ``_write_rows``, ``_write_shaf``), the stage's span and
-error tag (``_stage``), and the streaming loop (``_stream``): a read-ahead
-and a write-behind thread that do file IO only (every backend call stays
-on the calling thread), around a compress that resumes after the last
-batch written durably. Device batches are cut by device.batch_rows.
+(``_write_file``, ``_write_rows``, ``_write_shaf``), the writer thread
+(``_WriteBehind``), the stage's span and error tag (``_stage``), and the
+streaming loop (``_stream``): a read-ahead and a write-behind thread that
+do file IO only (every backend call stays on the calling thread), around
+a compress that resumes after the last batch written durably. The
+resident compress writes its ``.rle`` behind modules T and C on the same
+kind of writer thread. Device batches are cut by device.batch_rows.
 """
 
 from __future__ import annotations
@@ -45,6 +47,14 @@ from .errors import (FileInaccessibleError, FileTooSmallError,
 
 #: RLE keep/skip gate: applied to block 0 only (f.c:250-257).
 RLE_GATE_RATIO = 0.05
+
+#: The resident compress hands its .rle to the OS in writes of at most
+#: this many bytes. On the H100 machine of PERF.md §6 (a 9p root file
+#: system) a write holds up the process's other threads while it copies
+#: its buffer, so one write of the whole .rle stalls module T, which runs
+#: beside it: T took 4.7 ms alone, 33 ms beside a 90 MB write and 8 ms
+#: beside the same bytes in writes of 512 KiB.
+WRITE_SLICE = 1 << 19
 
 #: Streaming threshold (shafa_tpu/pipeline.py:320): above this input size
 #: the fused pipeline and the decoders process the file one device batch at
@@ -318,17 +328,25 @@ def _open_read(path: str, kind: str) -> bytes:
     return data
 
 
-def _write_file(path: str, kind: str, write, *args) -> None:
-    """write(fp, *args) into path, whole or not at all (_AtomicFile), in
-    the span ``shafa.io.write.<kind>``."""
-    with tracing.span(f"shafa.io.write.{kind}"), _AtomicFile(path) as fp:
+def _write_atomic(path: str, write, *args) -> None:
+    """write(fp, *args) into path, whole or not at all (_AtomicFile)."""
+    with _AtomicFile(path) as fp:
         write(fp, *args)
 
 
+def _write_file(path: str, kind: str, write, *args) -> None:
+    """_write_atomic in the span ``shafa.io.write.<kind>``."""
+    with tracing.span(f"shafa.io.write.{kind}"):
+        _write_atomic(path, write, *args)
+
+
 def _write_rows(fp, rows) -> None:
-    """uint8 rows back to back: a .rle, a restored file."""
+    """uint8 rows back to back: a .rle, a restored file. Each row is
+    written from its own buffer, with no copy (a large write releases the
+    GIL for its syscall); only a row that is not C-contiguous is made
+    into one first."""
     for r in rows:
-        fp.write(r.tobytes())
+        fp.write(np.ascontiguousarray(r))
 
 
 def _write_shaf(fp, payloads, n_blocks: int | None = None) -> None:
@@ -513,52 +531,35 @@ def _input_key(path: str, block_size: int) -> dict:
                 mtime_ns=st.st_mtime_ns)
 
 
-class _Overlap:
-    """Read-ahead + ordered write-behind around a streaming compute loop
-    (copy of shafa_tpu/pipeline.py:372-409).
+def _in_span(name: str, fn, *args):
+    with tracing.span(name):
+        return fn(*args)
 
-    A one-deep read prefetch plus a single-thread write executor, so disk
-    IO of batches k-1 and k+1 overlaps the device work of batch k (the
-    reference's runtime layer overlaps block N's compute with block N-1's
-    write, multithread.c:70-111). The threads run file IO only: every
-    backend call, and so every tensor and CUDA call, stays on the caller's
-    thread. Single writer thread => writes retain submission order. Errors
-    surface at the next submit/drain.
 
-    Each read runs in a ``shafa.io.read.<read_kind>`` span on the reader
-    thread, each write in ``shafa.io.write.<write_kind>`` on the writer;
-    the caller's waits for them are ``shafa.overlap.wait_read`` and
-    ``shafa.overlap.wait_write``."""
+class _WriteBehind:
+    """Ordered write-behind on one writer thread (the reference's runtime
+    layer overlaps block N's compute with block N-1's write,
+    multithread.c:70-111). write(fn, *args) runs fn(*args) there, in the
+    span ``shafa.io.write.<kind>``, and counts ``writes_behind``; writes
+    keep their submission order. At most ``depth`` writes stay in flight
+    (None: no bound). The thread runs file IO only: every backend call,
+    and so every tensor and CUDA call, stays on the caller's thread.
+    Errors surface at the next write past the depth or at drain; the
+    caller's waits are ``shafa.overlap.wait_write``."""
 
-    def __init__(self, read_kind: str, write_kind: str):
-        self._rd = cf.ThreadPoolExecutor(1, "shafa-read")
+    def __init__(self, kind: str, depth: int | None = None):
         self._wr = cf.ThreadPoolExecutor(1, "shafa-write")
-        self._read_span = f"shafa.io.read.{read_kind}"
-        self._write_span = f"shafa.io.write.{write_kind}"
-        self._next = None
+        self._write_span = f"shafa.io.write.{kind}"
+        self._depth = depth
         self._writes: list = []
 
-    @staticmethod
-    def _in_span(name, fn, *args):
-        with tracing.span(name):
-            return fn(*args)
-
-    def prefetch(self, fn, *args):
-        self._next = self._rd.submit(self._in_span, self._read_span, fn,
-                                     *args)
-
-    def take(self):
-        fut, self._next = self._next, None
-        with tracing.span("shafa.overlap.wait_read"):
-            return fut.result()
-
     def write(self, fn, *args):
-        self._writes.append(self._wr.submit(self._in_span, self._write_span,
-                                            fn, *args))
-        # keep at most 2 batches of output in flight (bounds RSS)
-        if len(self._writes) > 2:
+        tracing.count("writes_behind")
+        self._writes.append(self._wr.submit(_in_span, self._write_span, fn,
+                                            *args))
+        if self._depth is not None and len(self._writes) > self._depth:
             with tracing.span("shafa.overlap.wait_write"):
-                while len(self._writes) > 2:
+                while len(self._writes) > self._depth:
                     self._writes.pop(0).result()
 
     def drain(self):
@@ -568,8 +569,36 @@ class _Overlap:
         self._writes.clear()
 
     def close(self):
-        self._rd.shutdown(wait=False, cancel_futures=True)
         self._wr.shutdown(wait=True)
+
+
+class _Overlap(_WriteBehind):
+    """Read-ahead + ordered write-behind around a streaming compute loop
+    (copy of shafa_tpu/pipeline.py:372-409).
+
+    A one-deep read prefetch plus the writer thread of _WriteBehind, at
+    most 2 batches of output in flight (bounds RSS), so disk IO of batches
+    k-1 and k+1 overlaps the device work of batch k. Each read runs in a
+    ``shafa.io.read.<read_kind>`` span on the reader thread; the caller's
+    wait for it is ``shafa.overlap.wait_read``."""
+
+    def __init__(self, read_kind: str, write_kind: str):
+        super().__init__(write_kind, depth=2)
+        self._rd = cf.ThreadPoolExecutor(1, "shafa-read")
+        self._read_span = f"shafa.io.read.{read_kind}"
+        self._next = None
+
+    def prefetch(self, fn, *args):
+        self._next = self._rd.submit(_in_span, self._read_span, fn, *args)
+
+    def take(self):
+        fut, self._next = self._next, None
+        with tracing.span("shafa.overlap.wait_read"):
+            return fut.result()
+
+    def close(self):
+        self._rd.shutdown(wait=False, cancel_futures=True)
+        super().close()
 
 
 def _stream(batches, read, step, kinds: tuple[str, str],
@@ -756,6 +785,10 @@ def compress_pipeline(path: str, force_rle: bool, force_freq: bool,
 
     Raised ShafaErrors carry a ``stage`` attribute ('f'|'t'|'c') so the CLI
     can print the reference's per-module diagnostics (shafa.c:159-199).
+
+    On the device-resident path the .rle is written on a writer thread,
+    straight from its download buffer, while modules T and C run; the
+    chain waits for it before it returns or raises (``_drain_f``).
     """
     if not getattr(backend, "supports_fused", False):
         p, rf = module_f(path, force_rle, force_freq, block_size, backend)
@@ -768,45 +801,78 @@ def compress_pipeline(path: str, force_rle: bool, force_freq: bool,
                                            block_size, backend)
 
     t0 = time.perf_counter()
-    with _stage("f"):
-        geo = _input_geometry(path, block_size)
-        sizes = geo.sizes()
-        with tracing.span("shafa.io.read.input"), open(path, "rb") as fp:
-            blocks = _read_blocks(fp, sizes)
+    behind = _WriteBehind("rle")
+    published: list[str] = []  # the sidecars renamed into place behind it
+    try:
+        with _stage("f"):
+            geo = _input_geometry(path, block_size)
+            sizes = geo.sizes()
+            with tracing.span("shafa.io.read.input"), open(path, "rb") as fp:
+                blocks = _read_blocks(fp, sizes)
 
-        handle = backend.fused_encode(blocks)
-        rle_sizes = backend.fused_rle_sizes(handle)
-        compress_rle = _rle_gate(sizes[0], int(rle_sizes[0]), force_rle)
-        if compress_rle:
-            rle_flat = backend.fused_rle_bytes(handle)
-            rle_offs = np.concatenate(([0], np.cumsum(rle_sizes)))
-            _write_file(formats.add_ext(path, formats.RLE_EXT), "rle",
-                        _write_rows, [rle_flat])
-        stream, generated = _freq_step(
-            path, compress_rle, force_freq, sizes, rle_sizes,
-            lambda: backend.fused_rle_hists(handle),
-            lambda: backend.fused_raw_hists(handle))
-    rep_f = _report("f", t0, sizes, stream.sizes, generated,
-                    compress_rle=compress_rle, size_f=geo.total)
+            handle = backend.fused_encode(blocks)
+            rle_sizes = backend.fused_rle_sizes(handle)
+            compress_rle = _rle_gate(sizes[0], int(rle_sizes[0]), force_rle)
+            path_rle = formats.add_ext(path, formats.RLE_EXT)
+            if compress_rle:
+                # written behind T and C, straight from its download
+                # buffer; nothing after it reads the file
+                rle_flat = backend.fused_rle_bytes(handle)
+                rle_offs = np.concatenate(([0], np.cumsum(rle_sizes)))
+                behind.write(_write_atomic, path_rle, _write_rows, [
+                    rle_flat[i:i + WRITE_SLICE]
+                    for i in range(0, rle_flat.size, WRITE_SLICE)])
+            stream, generated = _freq_step(
+                path, compress_rle, force_freq, sizes, rle_sizes,
+                lambda: backend.fused_rle_hists(handle),
+                lambda: backend.fused_raw_hists(handle))
+            published += [g for g in generated if g != path_rle]
+        rep_f = _report("f", t0, sizes, stream.sizes, generated,
+                        compress_rle=compress_rle, size_f=geo.total)
 
-    t1 = time.perf_counter()
-    with _stage("t"):
-        tables, rep_t = _t_step(stream, t1)
+        t1 = time.perf_counter()
+        with _stage("t"):
+            tables, rep_t = _t_step(stream, t1)
+            published += rep_t.generated
 
-    t2 = time.perf_counter()
+        t2 = time.perf_counter()
 
-    def host_row(i: int) -> np.ndarray:
-        if compress_rle:
-            return rle_flat[rle_offs[i]:rle_offs[i + 1]]
-        return blocks[i]
+        def host_row(i: int) -> np.ndarray:
+            if compress_rle:
+                return rle_flat[rle_offs[i]:rle_offs[i + 1]]
+            return blocks[i]
 
-    with _stage("c"):
-        payloads = backend.fused_pack(handle, tables, compress_rle, host_row)
-        path_shafa = formats.add_ext(stream.path, formats.SHAFA_EXT)
-        _write_file(path_shafa, "shaf", _write_shaf, payloads, geo.n_blocks)
-    rep_c = _report("c", t2, stream.sizes, [len(p) for p in payloads],
-                    [path_shafa])
+        with _stage("c"):
+            payloads = backend.fused_pack(handle, tables, compress_rle,
+                                          host_row)
+            path_shafa = formats.add_ext(stream.path, formats.SHAFA_EXT)
+            _write_file(path_shafa, "shaf", _write_shaf, payloads,
+                        geo.n_blocks)
+            published.append(path_shafa)
+        rep_c = _report("c", t2, stream.sizes, [len(p) for p in payloads],
+                        [path_shafa])
+    finally:
+        _drain_f(behind, published)
     return path_shafa, [rep_f, rep_t, rep_c]
+
+
+def _drain_f(behind: _WriteBehind, published: list[str]) -> None:
+    """Wait for module F's write behind the chain, before the chain
+    returns or raises. Where it failed, the chain ends as the serial chain
+    would have at that write: the sidecars published after it are taken
+    back, and its error is raised as module F's, ahead of any later
+    stage's."""
+    try:
+        behind.drain()
+    except BaseException as e:
+        for p in published:
+            with contextlib.suppress(OSError):
+                os.unlink(p)
+        if isinstance(e, ShafaError):
+            e.stage = "f"
+        raise
+    finally:
+        behind.close()
 
 
 # ---------------------------------------------------------------------------

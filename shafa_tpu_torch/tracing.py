@@ -15,7 +15,9 @@ allocates on the card. The names are ``shafa.<layer>.<step>``:
     freq, cod, shaf, rle, restored): one file's open, reads or writes,
     close and rename;
   * ``shafa.overlap.wait_read`` / ``.wait_write``: the streaming drivers'
-    waits on their read-ahead and write-behind threads;
+    waits on their read-ahead and write-behind threads, and the resident
+    compress's wait, at its end, for the ``.rle`` written behind modules
+    T and C;
   * ``shafa.codes.build``;
   * ``shafa.backend.stack``, ``.h2d``, ``.d2h`` (the host's wait for the
     card and the copy), ``.encode_batch``, ``.pack_batch``,
@@ -39,6 +41,9 @@ the host; the three add up to the blocks a call decodes.
 ``decode_table_rows_on_device`` counts the rows whose decode tables K9
 built on the card: there it equals ``decode_blocks16 + decode_blocks32``,
 and on the CPU, where the tables' plain version runs, it stays 0.
+``writes_behind`` counts the writes handed to a writer thread
+(``pipeline._WriteBehind``): one a batch in the streaming drivers, and 1
+in a resident compress whose RLE gate keeps the ``.rle``.
 ``cli.main`` calls ``reset()`` at its start, so ``counters()`` gives the
 last call's (``--json`` reports them under ``"counters"``).
 """
@@ -57,7 +62,7 @@ COUNTERS = (
     "encode_batches", "pack_batches", "decode_batches",
     "file_read_bytes", "file_written_bytes",
     "decode_blocks16", "decode_blocks32", "host_decoded_blocks",
-    "decode_table_rows_on_device",
+    "decode_table_rows_on_device", "writes_behind",
 )
 
 _NOOP = contextlib.nullcontext()

@@ -212,6 +212,149 @@ def test_per_stage_modules_check_and_no_multithread(tmp_path, monkeypatch,
     capsys.readouterr()
 
 
+BLOCK = 64 << 10
+#: four full blocks and a ragged one, in batches of two rows: 3 batches
+SIZE = 4 * BLOCK + 20_000
+
+
+def _compress(d, data, backend_name, block_size=BLOCK):
+    """compress_pipeline of data as d/a.bin with the CPU device backend
+    (the resident chain, batches of two rows) or the NumPy backend (the
+    per-module chain): its output path and counters, or the exception it
+    raised, and the files left in d."""
+    from shafa_tpu_torch import device, pipeline, tracing
+    os.makedirs(d, exist_ok=True)
+    path = _write(os.path.join(d, "a.bin"), data)
+    backend = (pipeline.NumpyBackend() if backend_name == "numpy"
+               else device.TorchBackend("cpu"))
+    tracing.reset()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(device, "MAX_BATCH_ELEMS", 2 * BLOCK)
+        try:
+            out = pipeline.compress_pipeline(path, False, False, block_size,
+                                             backend)[0]
+        except Exception as e:  # noqa: BLE001 - compared across backends
+            out = e
+    return out, tracing.counters(), sorted(os.listdir(d))
+
+
+def _read(path):
+    with open(path, "rb") as fp:
+        return fp.read()
+
+
+@pytest.mark.parametrize("case", ["rle_kept", "rle_skipped", "rows_whole",
+                                  "rows_slices", "rows_strided"])
+def test_rle_written_behind_from_its_buffer(tmp_path, monkeypatch, case):
+    """The resident compress writes its .rle on a writer thread
+    (``writes_behind`` 1) where the RLE gate keeps it, and its sidecars
+    equal the per-module chain's, which writes in series (0), as does a
+    compress whose gate drops the RLE. ``_write_rows`` writes each row from
+    its own buffer: whole rows, slices of one buffer and strided views give
+    the rows' bytes back to back. The .rle goes out in writes of
+    WRITE_SLICE bytes (here many of them)."""
+    from shafa_tpu_torch import pipeline
+    monkeypatch.setattr(pipeline, "WRITE_SLICE", 4096)
+    if case.startswith("rows_"):
+        import numpy as np
+        flat = (np.arange(3000) * 7 % 256).astype(np.uint8)
+        rows = {"rows_whole": [flat.copy(), np.zeros(0, np.uint8),
+                               flat[:10].copy()],
+                "rows_slices": [flat[:100], flat[100:1700], flat[1700:]],
+                "rows_strided": [flat[::3], flat.reshape(60, 50)[:, 7],
+                                 flat[5:9]]}[case]
+        assert case != "rows_strided" or not rows[0].flags.c_contiguous
+        path = str(tmp_path / "rows")
+        pipeline._write_file(path, "restored", pipeline._write_rows, rows)
+        assert _read(path) == b"".join(r.tobytes() for r in rows)
+        return
+    data = (mixed(SIZE, seed=31) if case == "rle_kept"
+            else incompressible(SIZE, seed=32))
+    exts = ([".rle", ".rle.freq", ".rle.cod", ".rle.shaf"]
+            if case == "rle_kept" else [".freq", ".cod", ".shaf"])
+    res = {b: _compress(str(tmp_path / b), data, b)
+           for b in ("torch", "numpy")}
+    for b, (out, counts, files) in res.items():
+        assert out == str(tmp_path / b / "a.bin") + exts[-1]
+        assert files == sorted(["a.bin"] + ["a.bin" + e for e in exts])
+        assert counts["writes_behind"] == (b == "torch"
+                                           and case == "rle_kept")
+        assert counts["file_written_bytes"] == sum(
+            os.path.getsize(str(tmp_path / b / "a.bin") + e) for e in exts)
+    assert res["torch"][1]["encode_batches"] == 3
+    for e in exts:
+        assert _read(str(tmp_path / "torch" / "a.bin") + e) == \
+            _read(str(tmp_path / "numpy" / "a.bin") + e), e
+
+
+@pytest.mark.parametrize("failure", ["rle_tmp_is_a_directory",
+                                     "rle_write_fails_late",
+                                     "module_c_raises_during_rle_write"])
+def test_failed_compress_leaves_what_the_serial_chain_leaves(
+        tmp_path, monkeypatch, failure):
+    """A compress that fails while its .rle is written behind ends as the
+    per-module chain ends, which writes the .rle before .freq, T and C:
+    the same error, raised as module F's where the .rle write failed (even
+    when only the final wait sees it, after C published the .shaf), and
+    the same files left; where C fails, the whole .rle is on disk before
+    the error surfaces."""
+    import errno
+    import threading
+    import time
+    from shafa_tpu_torch import device, errors, pipeline
+    data = mixed(SIZE, seed=33)
+    write_rows = pipeline._write_rows
+
+    def late_failure(fp, rows):
+        # on the writer thread, wait until C has published the .shaf
+        if threading.current_thread() is not threading.main_thread():
+            shaf = fp.name[:-len(".rle.shafa_tmp")] + ".rle.shaf"
+            deadline = time.monotonic() + 30
+            while not os.path.exists(shaf) and time.monotonic() < deadline:
+                time.sleep(0.005)
+            assert os.path.exists(shaf)
+        raise OSError(errno.ENOSPC, "No space left on device")
+
+    def slow_write(fp, rows):
+        time.sleep(0.3)
+        write_rows(fp, rows)
+
+    def pack_fails(*args, **kwargs):
+        raise errors.FileUnrecognizableError("pack failed")
+
+    if failure == "rle_write_fails_late":
+        monkeypatch.setattr(pipeline, "_write_rows", late_failure)
+    elif failure == "module_c_raises_during_rle_write":
+        monkeypatch.setattr(pipeline, "_write_rows", slow_write)
+        monkeypatch.setattr(device.TorchBackend, "fused_pack", pack_fails)
+        monkeypatch.setattr(pipeline.NumpyBackend, "pack", pack_fails)
+    res = {}
+    for b in ("torch", "numpy"):
+        if failure == "rle_tmp_is_a_directory":
+            os.makedirs(str(tmp_path / b / "a.bin.rle.shafa_tmp"))
+        res[b] = _compress(str(tmp_path / b), data, b)
+    (err, counts, files), (want_err, _, want_files) = \
+        res["torch"], res["numpy"]
+    assert type(err) is type(want_err) and str(err).replace(
+        str(tmp_path / "torch"), "") == str(want_err).replace(
+        str(tmp_path / "numpy"), "")
+    assert getattr(err, "stage", None) == getattr(want_err, "stage", None)
+    assert files == want_files
+    assert counts["writes_behind"] == 1
+    if failure == "module_c_raises_during_rle_write":
+        assert err.stage == "c"
+        assert files == ["a.bin", "a.bin.rle", "a.bin.rle.cod",
+                         "a.bin.rle.freq"]
+        for e in (".rle", ".rle.freq", ".rle.cod"):
+            assert _read(str(tmp_path / "torch" / "a.bin") + e) == \
+                _read(str(tmp_path / "numpy" / "a.bin") + e), e
+    else:
+        assert isinstance(err, OSError)
+        assert files == ["a.bin"] + (["a.bin.rle.shafa_tmp"]
+                                     if failure == "rle_tmp_is_a_directory"
+                                     else [])
+
+
 def _bad_archive(path, kind):
     """An N-mode archive of one block that decodes on the host by design:
     a .cod block with no code at all, or one with codes of up to 34 bits

@@ -26,12 +26,15 @@ SIDECARS = (".rle", ".rle.freq", ".rle.cod", ".rle.shaf")
 #: The compress's flags: -b K, the R mode forced.
 COMPRESS = ["-b", "K", "-c", "r"]
 
-#: Spans each direction of the round trip must give, at least once.
+#: Spans each direction of the round trip must give, at least once, in a
+#: profiler that records the calling thread (the .rle is written on the
+#: writer thread: the caller records its wait for it).
 SPANS = {
     "compress": {
         "shafa.cli.main", "shafa.cli.make_backend",
         "shafa.pipeline.f", "shafa.pipeline.t", "shafa.pipeline.c",
-        "shafa.io.read.input", "shafa.io.write.rle", "shafa.io.write.freq",
+        "shafa.io.read.input", "shafa.overlap.wait_write",
+        "shafa.io.write.freq",
         "shafa.io.write.cod", "shafa.io.write.shaf", "shafa.codes.build",
         "shafa.backend.stack", "shafa.backend.h2d", "shafa.backend.d2h",
         "shafa.backend.encode_batch", "shafa.backend.pack_batch",
@@ -234,3 +237,31 @@ def test_streaming_drivers_span_their_waits(tmp_path, monkeypatch):
     prof.export_chrome_trace(tpath)
     names = {s["name"] for s in _user_spans(tpath)}
     assert {"shafa.overlap.wait_read", "shafa.overlap.wait_write"} <= names
+
+
+def test_rle_write_span_is_on_the_writer_thread(tmp_path):
+    """Under --profile (every thread) the resident compress's one
+    ``shafa.io.write.rle`` span is on another thread than the call's: it
+    starts after module F has read the input (once the writer thread gets
+    to it, which under load can be after F ends) and ends before the
+    caller's ``shafa.overlap.wait_write`` does, which follows module C."""
+    path = str(tmp_path / "a.bin")
+    with open(path, "wb") as fp:
+        fp.write(synthetic(SIZE, 3))
+    prof = str(tmp_path / "prof")
+    with _small_blocks():
+        counts = _cli([path] + COMPRESS + ["--profile", prof])
+    assert counts["writes_behind"] == 1
+    (trace,) = [n for n in os.listdir(prof) if n.endswith(".pt.trace.json")]
+    spans = {}
+    for s in _user_spans(os.path.join(prof, trace)):
+        spans.setdefault(s["name"], []).append(s)
+    (rle,) = spans["shafa.io.write.rle"]
+    (main,), (f,), (c,), (wait,) = (spans[n] for n in (
+        "shafa.cli.main", "shafa.pipeline.f", "shafa.pipeline.c",
+        "shafa.overlap.wait_write"))
+    assert rle["tid"] != main["tid"] == f["tid"] == wait["tid"]
+    (read,) = spans["shafa.io.read.input"]
+    assert f["ts"] <= read["ts"] + read["dur"] < rle["ts"]
+    assert c["ts"] + c["dur"] <= wait["ts"]
+    assert rle["ts"] + rle["dur"] <= wait["ts"] + wait["dur"]
