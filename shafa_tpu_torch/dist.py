@@ -17,6 +17,12 @@ host joins the shards in block order. PyTorch has no shard_map, so here:
     fused decode (the original's mesh route drops to per-stage unpack and
     rle_expand, device.py:564-568).
 
+On the calling thread, ``shafa.dist.run`` spans the wait on the devices'
+parts of one backend call and ``shafa.dist.join`` each join of their
+results; the counter ``dist_parts`` adds the non-empty block ranges each
+call's blocks are cut into, and ``dist_join_bytes`` the bytes the host
+copies to join the results (a list of rows is joined with no copy).
+
 TorchBackend syncs with the host inside its calls (size downloads, host
 routing), so each device has one worker thread for the life of the backend,
 and all of that device's calls, tensors and handles stay on it. Kernel
@@ -95,17 +101,23 @@ class ShardedBackend:
         return not self.sequential
 
     def _ranges(self, n: int):
+        """Each device's non-empty contiguous range (k, lo, hi) of n
+        blocks, counted in ``dist_parts``."""
         d = len(self.devices)
-        return [(k, n * k // d, n * (k + 1) // d) for k in range(d)]
+        ranges = [(k, n * k // d, n * (k + 1) // d) for k in range(d)]
+        ranges = [(k, lo, hi) for k, lo, hi in ranges if hi > lo]
+        tracing.count("dist_parts", len(ranges))
+        return ranges
 
     def _run(self, calls):
         """[(device index, fn, args)] -> fn(backend, *args) of each on its
         device's worker, results in the order given. Every call finishes
         before the first error, if any, is raised."""
-        futs = [self._workers[k].submit(self._on_worker, k, fn, args)
-                for k, fn, args in calls]
-        cf.wait(futs)
-        return [f.result() for f in futs]
+        with tracing.span("shafa.dist.run"):
+            futs = [self._workers[k].submit(self._on_worker, k, fn, args)
+                    for k, fn, args in calls]
+            cf.wait(futs)
+            return [f.result() for f in futs]
 
     def _on_worker(self, k: int, fn, args):
         with tracing.span(f"shafa.dist.worker.{k}"):
@@ -113,12 +125,21 @@ class ShardedBackend:
 
     def _split(self, n: int, fn):
         """fn(backend, lo, hi) over each device's non-empty block range."""
-        return self._run([(k, fn, (lo, hi))
-                          for k, lo, hi in self._ranges(n) if hi > lo])
+        return self._run([(k, fn, (lo, hi)) for k, lo, hi in self._ranges(n)])
 
     @staticmethod
+    @tracing.spanned("shafa.dist.join")
     def _joined(parts):
+        tracing.count("dist_join_bytes", 0)  # the rows themselves, no copy
         return [row for part in parts for row in part]
+
+    @staticmethod
+    @tracing.spanned("shafa.dist.join")
+    def _concatenated(parts, empty: np.ndarray) -> np.ndarray:
+        """The parts' arrays joined in block order, a fresh host copy."""
+        out = np.concatenate(parts) if parts else empty
+        tracing.count("dist_join_bytes", out.nbytes)
+        return out
 
     # -- Backend protocol ----------------------------------------------------
 
@@ -147,8 +168,7 @@ class ShardedBackend:
     # -- fused tier ----------------------------------------------------------
 
     def fused_encode(self, blocks) -> _ShardedHandle:
-        calls = [(k, lo, hi) for k, lo, hi in self._ranges(len(blocks))
-                 if hi > lo]
+        calls = self._ranges(len(blocks))
         subs = self._run([(k, lambda be, lo, hi: be.fused_encode(
             blocks[lo:hi]), (lo, hi)) for k, lo, hi in calls])
         return _ShardedHandle([(k, lo, hi, sub) for (k, lo, hi), sub
@@ -162,24 +182,22 @@ class ShardedBackend:
     def fused_rle_sizes(self, h) -> np.ndarray:
         parts = self._per_part(h, lambda be, lo, hi, sub:
                                be.fused_rle_sizes(sub))
-        return np.concatenate(parts) if parts else np.zeros(0, np.int64)
+        return self._concatenated(parts, np.zeros(0, np.int64))
 
     def fused_rle_hists(self, h) -> np.ndarray:
         parts = self._per_part(h, lambda be, lo, hi, sub:
                                be.fused_rle_hists(sub))
-        return np.concatenate(parts) if parts else np.zeros((0, 256),
-                                                            np.int64)
+        return self._concatenated(parts, np.zeros((0, 256), np.int64))
 
     def fused_raw_hists(self, h) -> np.ndarray:
         parts = self._per_part(h, lambda be, lo, hi, sub:
                                be.fused_raw_hists(sub))
-        return np.concatenate(parts) if parts else np.zeros((0, 256),
-                                                            np.int64)
+        return self._concatenated(parts, np.zeros((0, 256), np.int64))
 
     def fused_rle_bytes(self, h) -> np.ndarray:
         parts = self._per_part(h, lambda be, lo, hi, sub:
                                be.fused_rle_bytes(sub))
-        return np.concatenate(parts) if parts else np.zeros(0, np.uint8)
+        return self._concatenated(parts, np.zeros(0, np.uint8))
 
     def fused_pack(self, h, tables, use_rle: bool,
                    host_row) -> list[bytes | memoryview]:

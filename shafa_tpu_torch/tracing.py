@@ -27,12 +27,19 @@ allocates on the card. The names are ``shafa.<layer>.<step>``:
     (the pack's packed sizes and K1's tables, built on the host and
     uploaded; a decode batch's code lengths and codes uploaded and K9's
     launch, which builds its K2 or K5 tables there);
+  * ``shafa.dist.run``: on the calling thread, one call of
+    ``dist.ShardedBackend`` from handing its parts to the devices' workers
+    to the last result; ``shafa.dist.join``: each join of the parts'
+    results in block order;
   * ``shafa.dist.worker.<k>``: one call on a worker thread of
     ``dist.ShardedBackend``.
 
 torch.profiler records only the thread that started it, unless it was
 started with ``profile_all_threads``, as ``--profile`` starts it: the
-spans of worker threads are then in the trace too.
+spans of worker threads are then in the trace too. A profiler of the
+calling thread alone (the benchmark's) holds ``shafa.dist.run`` and
+``.join`` but no ``shafa.dist.worker.<k>``, and none of the spans the
+one-device backends give on the workers.
 
 Counters. ``count(name, n)`` adds n to a counter under a lock, always on.
 ``decode_blocks16`` and ``decode_blocks32`` count the blocks that decode
@@ -44,6 +51,10 @@ and on the CPU, where the tables' plain version runs, it stays 0.
 ``writes_behind`` counts the writes handed to a writer thread
 (``pipeline._WriteBehind``): one a batch in the streaming drivers, and 1
 in a resident compress whose RLE gate keeps the ``.rle``.
+``dist_parts`` and ``dist_join_bytes`` appear only when a call runs on
+``dist.ShardedBackend``: the non-empty block ranges its calls' blocks are
+cut into (a fused encode's later calls reuse its ranges and add none),
+and the bytes the host copies to join the devices' arrays.
 ``cli.main`` calls ``reset()`` at its start, so ``counters()`` gives the
 last call's (``--json`` reports them under ``"counters"``).
 """

@@ -17,7 +17,7 @@ import os
 import pytest
 import torch
 
-from shafa_tpu_torch import cli, device, geometry, pipeline, tracing
+from shafa_tpu_torch import cli, device, dist, geometry, pipeline, tracing
 from shafa_tpu_torch.profile_main_path import synthetic, text_with_rare_bytes
 
 BLOCK = 100_000
@@ -78,17 +78,22 @@ def _user_spans(trace_path: str) -> list[dict]:
             and e.get("ph") == "X"]
 
 
-def _traced_round_trip(d, data: bytes, again: bool) -> dict:
+def _traced_round_trip(d, data: bytes, again: bool,
+                       devices: int = 1) -> dict:
     """One round trip of data, each direction under its own CPU profiler,
     then, if again, a second compress of the same input with no profiler:
     the counters of each call, the trace's spans, and the sizes of the
-    files each wrote or read."""
+    files each wrote or read. With devices > 1, that many ``cpu`` devices
+    stand in for the cards of a host (dist.ShardedBackend)."""
     path = str(d / "a.bin")
     with open(path, "wb") as fp:
         fp.write(data)
     out = {"spans": {}, "counters": {}, "json": {}}
     cpu = [torch.profiler.ProfilerActivity.CPU]
-    with _small_blocks():
+    with _small_blocks(), pytest.MonkeyPatch.context() as mp:
+        if devices > 1:
+            mp.setattr(dist, "block_devices", lambda _=None: [
+                torch.device("cpu")] * devices)
         for direction, argv in (("compress", [path] + COMPRESS),
                                 ("decompress", [path + ".rle.shaf"])):
             jpath = str(d / f"{direction}.json")
@@ -126,6 +131,19 @@ def text_round_trip(tmp_path_factory):
                               DATA["text"][0](), again=False)
 
 
+@pytest.fixture(scope="module")
+def four_round_trip(tmp_path_factory):
+    """The synthetic mix's traced round trip over four devices."""
+    return _traced_round_trip(tmp_path_factory.mktemp("four"),
+                              DATA["synthetic"][0](), again=False,
+                              devices=4)
+
+
+def _inside(outer: dict, s: dict) -> bool:
+    return outer["ts"] <= s["ts"] and \
+        s["ts"] + s["dur"] <= outer["ts"] + outer["dur"]
+
+
 def test_span_is_the_shared_noop_without_a_profiler(tmp_path, monkeypatch):
     def entered(name):
         raise AssertionError(f"record_function({name!r}) entered")
@@ -156,11 +174,9 @@ def test_main_path_spans_are_in_the_trace(round_trip, text_round_trip,
     (main,) = [s for s in spans if s["name"] == "shafa.cli.main"]
     stages = [s for s in spans if s["name"].startswith("shafa.pipeline.")]
     for s in spans:
-        assert main["ts"] <= s["ts"] and \
-            s["ts"] + s["dur"] <= main["ts"] + main["dur"], s["name"]
+        assert _inside(main, s), s["name"]
         if s["name"].startswith("shafa.io."):
-            assert any(p["ts"] <= s["ts"] and s["ts"] + s["dur"]
-                       <= p["ts"] + p["dur"] for p in stages), s["name"]
+            assert any(_inside(p, s) for p in stages), s["name"]
 
 
 @pytest.mark.parametrize("direction", ["compress", "decompress"])
@@ -265,3 +281,36 @@ def test_rle_write_span_is_on_the_writer_thread(tmp_path):
     assert f["ts"] <= read["ts"] + read["dur"] < rle["ts"]
     assert c["ts"] + c["dur"] <= wait["ts"]
     assert rle["ts"] + rle["dur"] <= wait["ts"] + wait["dur"]
+
+
+@pytest.mark.parametrize("direction", ["compress", "decompress"])
+def test_four_devices_span_the_wait_and_the_join(four_round_trip,
+                                                 direction):
+    """A profiler of the calling thread, as the benchmark's, holds the
+    caller's wait on the devices (``shafa.dist.run``) and its joins of their
+    results (``shafa.dist.join``), inside the call; the workers' spans, and
+    the one-device backends' spans they hold, are not in it."""
+    spans = four_round_trip["spans"][direction]
+    names = {s["name"] for s in spans}
+    assert {"shafa.dist.run", "shafa.dist.join"} <= names
+    assert not {n for n in names if n.startswith(("shafa.dist.worker.",
+                                                  "shafa.backend."))}
+    (main,) = [s for s in spans if s["name"] == "shafa.cli.main"]
+    for s in spans:
+        if s["name"].startswith("shafa.dist."):
+            assert _inside(main, s) and s["tid"] == main["tid"], s["name"]
+    c = four_round_trip["counters"][direction]
+    assert c["dist_parts"] == SIZE // BLOCK  # three blocks, one a device
+    assert c == four_round_trip["json"][direction]
+    if direction == "compress":  # the .rle's host copy among the joins
+        assert c["dist_join_bytes"] >= four_round_trip["sidecars"][".rle"]
+    else:
+        assert c["dist_join_bytes"] == 0
+
+
+@pytest.mark.parametrize("direction", ["compress", "decompress"])
+def test_one_device_has_no_dist_span_or_counter(round_trip, direction):
+    names = {s["name"] for s in round_trip["spans"][direction]}
+    assert not {n for n in names if n.startswith("shafa.dist.")}
+    assert not {n for n in round_trip["counters"][direction]
+                if n.startswith("dist_")}
