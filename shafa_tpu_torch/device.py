@@ -26,9 +26,14 @@ pinned (``h2d_*`` / ``d2h_*`` counters) and give it a span. Each goes
 through a host staging tensor (``_staging``), never zero-filled: on a
 CUDA device it is pinned memory from PyTorch's caching host allocator, so
 calls of one shape reuse the same resident pages and every copy is a
-direct DMA. Only real bytes move: a batch's rows go up as runs of their
-bytes (the bytes past each length are zeros on the card), and rows come
-down joined on the card, in one copy a call.
+direct DMA. Rows that a file was read into a read buffer
+(``TorchBackend.read_buffer``, host memory of the same kind) go up from
+where they lie, with no host copy first (counter ``staged_read_bytes``);
+any other row is first copied into a staging tensor (span
+``shafa.backend.stack``).
+Only real bytes move: a batch's rows go up as runs of their bytes (the
+bytes past each length are zeros on the card), and rows come down joined
+on the card, in one copy a call.
 
 Buffer lifetime: what a download returns (NumPy arrays, and memoryviews of
 them from ``download_packed``) are views of the staging tensor, whose
@@ -143,6 +148,34 @@ def _staging(shape, dtype, device) -> torch.Tensor:
                        pin_memory=torch.device(device).type == "cuda")
 
 
+class _ReadBuffer:
+    """A staging tensor (``_staging``) that a file is read into: the bytes
+    of the arrays ``TorchBackend.read_buffer`` makes over it (through the
+    buffer protocol), which their views lead back to through their
+    bases."""
+
+    def __init__(self, nbytes: int, device):
+        self.tensor = _staging((nbytes,), torch.uint8, device)
+
+    def __buffer__(self, flags: int) -> memoryview:
+        return memoryview(self.tensor.numpy())
+
+
+def _in_read_buffer(row: np.ndarray) -> tuple[torch.Tensor, int] | None:
+    """(the read buffer's tensor, the row's first byte in it) where the
+    contiguous row lies in one (``TorchBackend.read_buffer``), found
+    through the row's bases; None otherwise."""
+    o = row
+    while isinstance(o, (np.ndarray, memoryview)):
+        o = o.base if isinstance(o, np.ndarray) else o.obj
+    if not isinstance(o, _ReadBuffer) or not row.flags.c_contiguous:
+        return None
+    first = row.__array_interface__["data"][0] - o.tensor.data_ptr()
+    if not 0 <= first <= o.tensor.numel() - row.nbytes:
+        return None
+    return o.tensor, first
+
+
 def _wait(device) -> None:
     """Wait for the work queued on the device's current stream."""
     if torch.device(device).type == "cuda":
@@ -181,37 +214,68 @@ def _upload_rows(rows, p: int, device):
     """1-D uint8 rows (each at most p bytes) -> their (len(rows), p) batch
     on the device, their int32 lengths on the host and on the device.
 
-    Each row is copied into its row of one staging tensor. Only real bytes
-    go up: rows that fill their width go up together as one copy (up to
-    RUN_BYTES, or up to and with the next row that does not), so the card
-    copies while the host stages the next rows. Where a row is shorter
-    than p, the batch is zeroed on the card first, by one memset, so the
-    bytes past each length are zeros: the card writes a memset far faster
-    than the copies bring the rows, and faster than a mask of the pads
-    alone (arange, compare, masked_fill) is built and applied. It returns
-    when the copies are done, so the staging tensor is free again for the
-    next batch."""
+    A row that lies in a read buffer (``TorchBackend.read_buffer``) goes
+    up from where it lies; any other row is first copied into its row of
+    one staging tensor. Only real bytes go up: rows whose bytes lie back
+    to back in their source, each filling its width, go up together as
+    one copy (up to RUN_BYTES, or up to and with the next row that does
+    not), so the card copies while the host stages the next rows; each
+    other row goes up alone. Where a row is shorter than p, the batch is
+    zeroed on the card first, by one memset, so the bytes past each length
+    are zeros: the card writes a memset far faster than the copies bring
+    the rows, and faster than a mask of the pads alone (arange, compare,
+    masked_fill) is built and applied. It returns when the copies are
+    done, so the staging tensor is free again for the next batch."""
     lens = np.array([r.size for r in rows], np.int32)
-    host = _staging((len(rows), p), torch.uint8, device)
-    staged, src = host.numpy(), host.view(-1)
     x = (torch.zeros if (lens < p).any() else torch.empty)(
         (len(rows), p), dtype=torch.uint8, device=device)
     dst = x.view(-1)
-    lo = copies = 0  # lo: the first byte not yet sent
+    staged = flat = None  # the staging tensor, for rows in no read buffer
+    run = None  # not yet sent: [source, its first byte, dst's first, bytes]
+    sent = {}  # per source: [source, bytes, copies]
+    direct = 0  # bytes that go up from a read buffer
     for i, r in enumerate(rows):
-        with tracing.span("shafa.backend.stack"):
-            staged[i, :r.size] = r
-        hi = i * p + r.size
-        if r.size < p or hi - lo >= RUN_BYTES or i == len(rows) - 1:
-            if hi > lo:
-                with tracing.span("shafa.backend.h2d"):
-                    dst[lo:hi].copy_(src[lo:hi], non_blocking=True)
-                copies += 1
-            lo = (i + 1) * p
-    _count_copy("h2d", host, int(lens.sum()), copies)
+        if not r.size:
+            continue
+        src = _in_read_buffer(r)
+        if src is None:
+            if staged is None:
+                host = _staging((len(rows), p), torch.uint8, device)
+                staged, flat = host.numpy(), host.view(-1)
+            src = flat, i * p
+        else:
+            direct += r.size
+        if run and run[0] is src[0] and run[1] + run[3] == src[1] \
+                and run[2] + run[3] == i * p and run[3] < RUN_BYTES:
+            run[3] += r.size
+        else:
+            if run:
+                _send(dst, *run, sent)
+            run = [*src, i * p, r.size]
+        if src[0] is flat:
+            with tracing.span("shafa.backend.stack"):
+                staged[i, :r.size] = r
+    if run:
+        _send(dst, *run, sent)
+    for src, nbytes, copies in sent.values():
+        _count_copy("h2d", src, nbytes, copies)
+    if direct:
+        tracing.count("staged_read_bytes", direct)
     with tracing.span("shafa.backend.h2d"):
         _wait(x.device)
     return x, lens, _upload(lens, device)
+
+
+def _send(dst: torch.Tensor, src: torch.Tensor, first: int, at: int,
+          n: int, sent: dict) -> None:
+    """One copy of n bytes of the 1-D host tensor src, from its byte
+    first, to dst's bytes from at, not waited for; added to sent[id(src)]
+    as [src, bytes, copies]."""
+    with tracing.span("shafa.backend.h2d"):
+        dst[at:at + n].copy_(src[first:first + n], non_blocking=True)
+    tally = sent.setdefault(id(src), [src, 0, 0])
+    tally[1] += n
+    tally[2] += 1
 
 
 def _download(t: torch.Tensor) -> np.ndarray:
@@ -361,6 +425,14 @@ class TorchBackend:
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         return _upload(a, self.device)
+
+    def read_buffer(self, nbytes: int) -> np.ndarray:
+        """nbytes of host memory, not initialised, to read a file into:
+        pinned, from PyTorch's caching host allocator, where the device is
+        CUDA. Its views (slices, ``np.frombuffer``, memoryviews) go up from
+        where they lie (``_upload_rows``), to any device: under unified
+        addressing pinned memory is pinned for every device's context."""
+        return np.frombuffer(_ReadBuffer(nbytes, self.device), np.uint8)
 
     def _download_rows(self, rows: torch.Tensor, sizes) -> list[np.ndarray]:
         """Row i's first sizes[i] bytes, for each row, as host arrays."""

@@ -100,6 +100,11 @@ class ShardedBackend:
     def supports_fused(self) -> bool:
         return not self.sequential
 
+    def read_buffer(self, nbytes: int) -> np.ndarray:
+        """One read buffer for every device (TorchBackend.read_buffer): each
+        worker uploads its range of the blocks from where they lie."""
+        return self.backends[0].read_buffer(nbytes)
+
     def _ranges(self, n: int):
         """Each device's non-empty contiguous range (k, lo, hi) of n
         blocks, counted in ``dist_parts``."""

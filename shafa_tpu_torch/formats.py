@@ -361,7 +361,8 @@ def iter_shaf_frames_file(fp: IO[bytes]) -> Iterator[bytes]:
 
 def parse_shaf_frames(data: bytes) -> list[bytes]:
     """All block payloads of a .shaf byte string (native frame scan when
-    available; same result as list(iter_shaf_blocks(data)))."""
+    available; same result as list(iter_shaf_blocks(data))). The payloads
+    are slices of data: copies of bytes, views of a uint8 array."""
     from . import runtime
     out = runtime.parse_shaf(data)
     if out is not None:

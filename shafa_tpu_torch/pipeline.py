@@ -24,7 +24,11 @@ streaming loop (``_stream``): a read-ahead and a write-behind thread that
 do file IO only (every backend call stays on the calling thread), around
 a compress that resumes after the last batch written durably. The
 resident compress writes its ``.rle`` behind modules T and C on the same
-kind of writer thread. Device batches are cut by device.batch_rows.
+kind of writer thread. The resident compress reads its input, and the
+resident decode its .shaf, into a buffer the backend gives
+(``read_buffer``, where it has one: host memory its device takes rows
+from where they lie), so no row is copied on the host before it goes up.
+Device batches are cut by device.batch_rows.
 """
 
 from __future__ import annotations
@@ -151,6 +155,9 @@ class CheckedBackend:
     @property
     def supports_fused(self) -> bool:
         return getattr(self.inner, "supports_fused", False)
+
+    def read_buffer(self, nbytes: int) -> np.ndarray:
+        return _read_buffer(self.inner)(nbytes)
 
     @staticmethod
     def _as_array(x) -> np.ndarray:
@@ -300,28 +307,58 @@ def _stage(name: str):
             raise
 
 
+def _host_buffer(nbytes: int) -> np.ndarray:
+    """nbytes of plain host memory, not initialised."""
+    return np.empty(nbytes, np.uint8)
+
+
+def _read_buffer(backend):
+    """The backend's ``read_buffer`` (nbytes -> a uint8 array to read a
+    file into, whose rows its device takes from where they lie), or plain
+    host memory where it has none."""
+    return getattr(backend, "read_buffer", _host_buffer)
+
+
+def _read_into(fp, buf: np.ndarray) -> int:
+    """Read fp into buf until it is full or the file ends; the bytes
+    read."""
+    view, n = memoryview(buf), 0
+    while n < buf.size:
+        k = fp.readinto(view[n:])
+        if not k:
+            break
+        n += k
+    return n
+
+
 def _read_blocks(fp, sizes: Sequence[int], lo: int = 0,
-                 hi: int | None = None) -> list[np.ndarray]:
+                 hi: int | None = None, alloc=_host_buffer
+                 ) -> list[np.ndarray]:
     """Blocks [lo, hi) (all by default) of an open data stream whose blocks
-    have these sizes, one read a block; a short read raises
-    FileUnrecognizableError. The caller's ``shafa.io.read.<kind>`` span
-    covers it (in the streaming loop, its reader's)."""
+    have these sizes: one read into one buffer from alloc(nbytes), the
+    blocks views of it; a short read raises FileUnrecognizableError. The
+    caller's ``shafa.io.read.<kind>`` span covers it (in the streaming
+    loop, its reader's)."""
     fp.seek(sum(sizes[:lo]))
-    out = []
-    for s in sizes[lo:hi]:
-        buf = fp.read(s)
-        if len(buf) != s:
-            raise FileUnrecognizableError(f"{fp.name}: truncated block")
-        out.append(np.frombuffer(buf, np.uint8))
-    tracing.count("file_read_bytes", sum(sizes[lo:hi]))
-    return out
+    part = [int(s) for s in sizes[lo:hi]]
+    buf = alloc(sum(part))
+    if _read_into(fp, buf) != buf.size:
+        raise FileUnrecognizableError(f"{fp.name}: truncated block")
+    tracing.count("file_read_bytes", buf.size)
+    offs = np.cumsum([0] + part)
+    return [buf[offs[k]:offs[k + 1]] for k in range(len(part))]
 
 
-def _open_read(path: str, kind: str) -> bytes:
-    """A whole sidecar (kind: freq, cod or shaf)."""
+def _open_read(path: str, kind: str, alloc=None):
+    """A whole sidecar (kind: freq, cod or shaf): bytes, or where alloc is
+    given, a view of the buffer alloc(nbytes) it was read into."""
     try:
         with tracing.span(f"shafa.io.read.{kind}"), open(path, "rb") as fp:
-            data = fp.read()
+            if alloc is None:
+                data = fp.read()
+            else:
+                data = alloc(os.fstat(fp.fileno()).st_size)
+                data = data[:_read_into(fp, data)]
     except OSError as e:
         raise FileInaccessibleError(str(e)) from e
     tracing.count("file_read_bytes", len(data))
@@ -808,7 +845,8 @@ def compress_pipeline(path: str, force_rle: bool, force_freq: bool,
             geo = _input_geometry(path, block_size)
             sizes = geo.sizes()
             with tracing.span("shafa.io.read.input"), open(path, "rb") as fp:
-                blocks = _read_blocks(fp, sizes)
+                blocks = _read_blocks(fp, sizes,
+                                      alloc=_read_buffer(backend))
 
             handle = backend.fused_encode(blocks)
             rle_sizes = backend.fused_rle_sizes(handle)
@@ -931,7 +969,8 @@ def module_d_shafa(path: str, rle_decompression: bool,
             lambda lo, hi, payloads: backend.fused_decode(
                 payloads, codes_mod.take_rows(tables, lo, hi),
                 block_sizes[lo:hi], expand=rle_decompression))
-    payloads = formats.parse_shaf_frames(_open_read(path, "shaf"))
+    payloads = formats.parse_shaf_frames(
+        _open_read(path, "shaf", _read_buffer(backend)))
     if len(payloads) != len(block_sizes):
         raise FileUnrecognizableError("block count mismatch .shaf vs .cod")
     if fused:

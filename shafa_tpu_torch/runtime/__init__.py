@@ -224,16 +224,19 @@ def parse_cod(data: bytes):
 
 
 def parse_shaf(data: bytes):
-    """bytes -> (offsets (n,) i64, sizes (n,) i64) into `data`, or None."""
+    """bytes, or a uint8 array (read where it lies, not copied) ->
+    (offsets (n,) i64, sizes (n,) i64) into `data`, or None."""
     L = lib()
     if L is None:
         return None
+    buf = np.frombuffer(data, np.uint8)
+    ptr = buf.ctypes.data_as(_p_char)
     n = _i64()
-    if L.sf_parse_shaf_header(data, len(data), ctypes.byref(n)) != 0:
+    if L.sf_parse_shaf_header(ptr, buf.size, ctypes.byref(n)) != 0:
         return None
     offs = np.empty(n.value, np.int64)
     sizes = np.empty(n.value, np.int64)
-    if L.sf_parse_shaf_frames(data, len(data), n.value,
+    if L.sf_parse_shaf_frames(ptr, buf.size, n.value,
                               offs.ctypes.data_as(_p_i64),
                               sizes.ctypes.data_as(_p_i64)) != 0:
         return None

@@ -19,7 +19,12 @@ allocates on the card. The names are ``shafa.<layer>.<step>``:
     compress's wait, at its end, for the ``.rle`` written behind modules
     T and C;
   * ``shafa.codes.build``;
-  * ``shafa.backend.stack``, ``.h2d``, ``.d2h`` (the host's wait for the
+  * ``shafa.backend.stack``: a row's copy into a staging tensor, only on
+    the paths whose rows lie in no read buffer (the per-module chain, the
+    streaming and multi-host drivers, host rows handed to ``histogram``,
+    ``pack`` or ``rle_expand``); the resident compress and decode send
+    their rows from the buffer they were read into;
+  * ``shafa.backend.h2d``, ``.d2h`` (the host's wait for the
     card and the copy), ``.encode_batch``, ``.pack_batch``,
     ``.decode_batch`` (a batch of codes of at most 16 bits),
     ``.decode_batch32`` (17-32 bits);
@@ -48,6 +53,11 @@ the host; the three add up to the blocks a call decodes.
 ``decode_table_rows_on_device`` counts the rows whose decode tables K9
 built on the card: there it equals ``decode_blocks16 + decode_blocks32``,
 and on the CPU, where the tables' plain version runs, it stays 0.
+``staged_read_bytes`` counts the bytes that went up to a device straight
+from the buffer a file was read into (``TorchBackend.read_buffer``), with
+no host copy: a resident compress's input, a resident decode's payloads;
+0 with the NumPy backend, the per-module compress chain and the streaming
+and multi-host drivers.
 ``writes_behind`` counts the writes handed to a writer thread
 (``pipeline._WriteBehind``): one a batch in the streaming drivers, and 1
 in a resident compress whose RLE gate keeps the ``.rle``.
@@ -73,7 +83,7 @@ COUNTERS = (
     "encode_batches", "pack_batches", "decode_batches",
     "file_read_bytes", "file_written_bytes",
     "decode_blocks16", "decode_blocks32", "host_decoded_blocks",
-    "decode_table_rows_on_device", "writes_behind",
+    "decode_table_rows_on_device", "writes_behind", "staged_read_bytes",
 )
 
 _NOOP = contextlib.nullcontext()

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from shafa_tpu import codes as codes_mod, oracle
-from shafa_tpu_torch import cli, device, geometry, pipeline, tracing
+from shafa_tpu_torch import (cli, device, formats, geometry, pipeline,
+                             tracing)
 from shafa_tpu_torch.device import (TorchBackend, _bucket, _stack_blocks,
                                     tables_to_device)
 from shafa_tpu_torch.kernels import _build, decode, emit, expand, rle
@@ -677,8 +678,9 @@ def test_cli_round_trip_stages_real_rows_in_reused_pinned_memory(
     blocks scaled down to 64 KiB through -b K and MAX_BATCH_ELEMS), through
     the CLI on the card: every sidecar equals --backend numpy's and the
     file comes back exactly; no copy is pageable; the compress uploads the
-    input's bytes and the lengths and tables only; a second identical round
-    trip takes no new pinned memory from CUDA."""
+    input's bytes and the lengths and tables only, the input and the
+    payloads straight from the buffers they were read into; a second
+    identical round trip takes no new pinned memory from CUDA."""
     block = 1 << 16
     size = 12 * block + block // 2
     monkeypatch.delenv("SHAFA_TORCH_DEVICE", raising=False)
@@ -696,6 +698,10 @@ def test_cli_round_trip_stages_real_rows_in_reused_pinned_memory(
     for c in (comp, dec):
         assert c["h2d_pageable_bytes"] == c["d2h_pageable_bytes"] == 0
         assert c["h2d_bytes"] > 0 and c["d2h_bytes"] > 0
+    (shaf,) = [v for n, v in files.items() if n.endswith(".shaf")]
+    assert comp["staged_read_bytes"] == size
+    assert dec["staged_read_bytes"] == sum(
+        len(p) for p in formats.parse_shaf_frames(shaf))
     before = _pinned_segments()
     again = _round_trip(tmp_path / "again", data, "torch")
     assert _pinned_segments() == before

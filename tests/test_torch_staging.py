@@ -1,12 +1,20 @@
 """How the backend stages copies (shafa_tpu_torch/device.py), on the CPU:
 batches hold only their real rows, only each row's bytes go up and the
-bytes past it are zeroed on the device, downloads land in one host buffer
-that the results are views of, and --check compares those views."""
+bytes past it are zeroed on the device, rows read into a read buffer go
+up from where they lie with no staging copy, downloads land in one host
+buffer that the results are views of, and --check compares those
+views."""
+
+import contextlib
+import io
+import os
 
 import numpy as np
 import pytest
 import torch
 
+import corpus
+from shafa_tpu_torch import cli, dist, formats
 from shafa_tpu_torch import codes as codes_mod
 from shafa_tpu_torch import device, oracle, pipeline, tracing
 
@@ -143,3 +151,169 @@ def test_check_compares_memoryview_payloads():
         checked._cmp("pack", got, [bytes([0, 1, 2, 4]), b""])
     with pytest.raises(AssertionError, match="at block 1"):
         checked._cmp("pack", got, [bytes(range(4)), b"\0"])
+
+
+def _read_rows(sizes, seed=0, alloc=None):
+    """Rows of these sizes read, as the resident compress reads its input,
+    into one read buffer for the CPU (or alloc's buffer): views of it."""
+    data = np.concatenate(_rows(sizes, seed)).tobytes()
+    return pipeline._read_blocks(
+        io.BytesIO(data), sizes,
+        alloc=alloc or device.TorchBackend(CPU).read_buffer)
+
+
+def _spans(fn):
+    """fn()'s result and the names of the spans recorded while it ran."""
+    cpu = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=cpu) as prof:
+        out = fn()
+    return out, {e.name for e in prof.events()}
+
+
+#: rows at P, and a short last row; rows narrower than P, and a short last
+#: row; a read buffer's rows between rows that lie elsewhere; with the
+#: copies each takes (the lengths' upload aside)
+READ_CASES = {
+    "at_p": ([1024, 1024, 1024, 100], [True] * 4, 1),
+    "narrower": ([640, 640, 640, 100], [True] * 4, 4),
+    "mixed": ([1024, 1024, 1024, 100], [True, False, True, True], 3),
+}
+
+
+@pytest.mark.parametrize("case", list(READ_CASES))
+def test_rows_in_a_read_buffer_go_up_from_where_they_lie(dirty_memory,
+                                                         case):
+    sizes, in_buffer, copies = READ_CASES[case]
+    read = _read_rows(sizes, 5)
+    rows = [r if inside else r.copy() for r, inside in zip(read, in_buffer)]
+    tracing.reset()
+    (x, lens, ld), names = _spans(lambda: device._upload_rows(rows, 1024,
+                                                             CPU))
+    assert x.shape == (4, 1024) and lens.tolist() == ld.tolist() == sizes
+    for r, got in zip(rows, x.numpy()):
+        assert np.array_equal(got[:r.size], r)
+        assert not got[r.size:].any()
+    c = tracing.counters()
+    assert c["h2d_bytes"] == sum(sizes) + 4 * 4  # real bytes, the lengths
+    assert c["h2d_copies"] == copies + 1
+    assert c["staged_read_bytes"] == sum(
+        s for s, inside in zip(sizes, in_buffer) if inside)
+    assert ("shafa.backend.stack" in names) == (not all(in_buffer))
+
+
+@pytest.mark.parametrize("run_bytes,copies", [(2048, 2), (1024, 4)])
+def test_rows_at_p_in_a_read_buffer_go_up_in_runs(monkeypatch, dirty_memory,
+                                                  run_bytes, copies):
+    monkeypatch.setattr(device, "RUN_BYTES", run_bytes)
+    rows = _read_rows([1024, 1024, 1024, 100], 6)
+    tracing.reset()
+    x, _, _ = device._upload_rows(rows, 1024, CPU)
+    assert np.array_equal(x.numpy().reshape(-1)[:3 * 1024 + 100],
+                          np.concatenate(rows))
+    assert tracing.counters()["h2d_copies"] == copies + 1
+
+
+def test_plain_host_memory_is_not_a_read_buffer():
+    plain = _read_rows([100, 200], alloc=pipeline._host_buffer)
+    staged = _read_rows([100, 200])
+    assert [device._in_read_buffer(r) for r in plain] == [None, None]
+    assert [device._in_read_buffer(r)[1] for r in staged] == [0, 100]
+    # payloads parsed out of a read .shaf, through np.frombuffer: found
+    buf = device.TorchBackend(CPU).read_buffer(6)
+    buf[:] = np.frombuffer(b"@1@1@7", np.uint8)
+    (payload,) = formats.parse_shaf_frames(buf)
+    assert bytes(payload) == b"7"
+    got = device._in_read_buffer(np.frombuffer(memoryview(payload),
+                                               np.uint8))
+    assert got[1] == 5 and got[0].data_ptr() == buf.ctypes.data
+
+
+def test_two_devices_upload_their_ranges_of_one_read_buffer():
+    """A ShardedBackend over two CPU entries slices one read buffer: each
+    worker sends its range from it, and the results are one backend's."""
+    sizes = [1000] * 4 + [333]
+    sharded = dist.ShardedBackend([CPU, CPU])
+    try:
+        blocks = _read_rows(sizes, 8, alloc=sharded.read_buffer)
+        tracing.reset()
+        h = sharded.fused_encode(blocks)
+        got = (sharded.fused_rle_bytes(h), sharded.fused_rle_hists(h))
+        assert tracing.counters()["staged_read_bytes"] == sum(sizes)
+        assert [sub.n_blocks for *_, sub in h.parts] == [2, 3]
+    finally:
+        sharded.close()
+    one = device.TorchBackend(CPU)
+    h1 = one.fused_encode([b.copy() for b in blocks])
+    assert np.array_equal(got[0], one.fused_rle_bytes(h1))
+    assert np.array_equal(got[1], one.fused_rle_hists(h1))
+
+
+def test_oracle_routed_row_reads_its_bytes_from_the_read_buffer():
+    """Row 1's codes pass 32 bits, so its payload comes from the oracle on
+    host_row(1): the row's own bytes, where they lie in the read buffer."""
+    blocks = _read_rows([3000, 2000])
+    blocks[1][:] = np.arange(2000) % 35
+    t0 = codes_mod.build_code_tables(oracle.histogram(blocks[0])[None])
+    lens = np.zeros((1, 256), np.uint8)
+    vals = np.zeros((1, 256), np.uint64)
+    code = prev = 0
+    for sym, ln in enumerate(list(range(1, 34)) + [34, 34]):
+        code <<= ln - prev
+        lens[0, sym], vals[0, sym] = ln, np.uint64(code) << np.uint64(64 - ln)
+        code, prev = code + 1, ln
+    tables = codes_mod.CodeTables(np.concatenate([t0.lens, lens]),
+                                  np.concatenate([t0.vals, vals]))
+    asked = []
+
+    def host_row(i):
+        asked.append(device._in_read_buffer(blocks[i]) is not None)
+        return blocks[i]
+    be = device.TorchBackend(CPU)
+    got = be.fused_pack(be.fused_encode(blocks), tables, False, host_row)
+    assert asked == [True]
+    for i, b in enumerate(blocks):
+        assert bytes(got[i]) == bytes(oracle.pack(b, tables.lens[i],
+                                                  tables.vals[i]))
+
+
+def _run_cli(argv) -> dict:
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(argv) == 0
+    return tracing.counters()
+
+
+@pytest.mark.parametrize("flag,size", [("K", 2 * 655_360 + 50_000),
+                                       ("m", 300_000)])
+def test_resident_round_trip_reads_into_the_read_buffer(tmp_path,
+                                                        monkeypatch, flag,
+                                                        size):
+    """A CLI round trip on the CPU device: the sidecars are the NumPy
+    backend's, the compress sends the whole input and the decode every
+    payload from the buffer each was read into, and no row is staged."""
+    monkeypatch.setenv("SHAFA_TORCH_DEVICE", "cpu")
+    data = corpus.mixed(size, seed=11)
+    paths = {}
+    for name in ("torch", "numpy"):
+        os.mkdir(tmp_path / name)
+        paths[name] = str(tmp_path / name / "a.bin")
+        with open(paths[name], "wb") as fp:
+            fp.write(data)
+    assert _run_cli([paths["numpy"], "-b", flag, "-c", "r", "--backend",
+                     "numpy"])["staged_read_bytes"] == 0
+    comp, names = _spans(lambda: _run_cli([paths["torch"], "-b", flag,
+                                           "-c", "r"]))
+    assert comp["staged_read_bytes"] == size
+    assert "shafa.backend.stack" not in names
+    for ext in (".rle", ".rle.freq", ".rle.cod", ".rle.shaf"):
+        with open(paths["torch"] + ext, "rb") as a, \
+                open(paths["numpy"] + ext, "rb") as b:
+            assert a.read() == b.read(), ext
+    with open(paths["torch"] + ".rle.shaf", "rb") as fp:
+        payload_bytes = sum(len(p) for p in
+                            formats.parse_shaf_frames(fp.read()))
+    os.remove(paths["torch"])
+    dec, names = _spans(lambda: _run_cli([paths["torch"] + ".rle.shaf"]))
+    assert dec["staged_read_bytes"] == payload_bytes
+    assert "shafa.backend.stack" not in names
+    with open(paths["torch"], "rb") as fp:
+        assert fp.read() == data
